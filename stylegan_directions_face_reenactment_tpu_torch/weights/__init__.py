@@ -1,0 +1,6 @@
+from .from_jax import (deca_from_jax, direction_matrix_from_jax,
+                       generator_from_jax, init_deca, init_direction_matrix,
+                       init_generator)
+
+__all__ = ["deca_from_jax", "direction_matrix_from_jax", "generator_from_jax",
+           "init_deca", "init_direction_matrix", "init_generator"]

@@ -1,0 +1,197 @@
+"""Weights for the port's modules: imported from the JAX package's
+parameter pytrees, or made from a seed.
+
+The ``*_from_jax`` functions take the JAX package's pytrees with numpy (or
+any array) leaves and return the port's modules; this module never imports
+JAX. Layout changes at the boundary:
+
+  * conv HWIO (kh, kw, in, out) → OIHW (out, in, kh, kw), modulated convs
+    included;
+  * noise maps (1, R, R, 1) → (1, 1, R, R); the constant input
+    (1, 4, 4, C) → (1, C, 4, 4);
+  * batch norm {scale, offset, mean, var} → {weight, bias, running_mean,
+    running_var}; linear (out, in) unchanged.
+
+The ``init_*`` functions give each module a seeded random init drawn from
+the same distributions as the JAX package's ``init_*`` (not the same
+numbers: the generators differ). Both build on the CPU and then move the
+module to ``device`` (the CUDA card by default).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from ..models.deca.deca import DECA
+from ..models.direction_matrix import DirectionMatrix
+from ..models.stylegan2 import (ConstantInput, EqualLinear, Generator,
+                                ModulatedConv2d, NoiseBuffers)
+from ..utils.device import DeviceLike, resolve_device
+
+Params = Mapping[str, Any]
+
+
+def _np(a, perm=None) -> np.ndarray:
+    a = np.asarray(a, dtype=np.float32)
+    return np.transpose(a, perm) if perm is not None else a
+
+
+def _load(module: nn.Module, arrays: Dict[str, np.ndarray]) -> None:
+    """Copy ``arrays`` into ``module``'s state; every key and shape must
+    match, and every parameter must be given."""
+    sd = module.state_dict()
+    for k, v in arrays.items():
+        if k not in sd:
+            raise KeyError(f"{type(module).__name__} has no entry {k!r}")
+        if tuple(sd[k].shape) != v.shape:
+            raise ValueError(f"{k}: shape {v.shape}, expected {tuple(sd[k].shape)}")
+        sd[k] = torch.from_numpy(np.array(v, dtype=np.float32))
+    missing = {n for n, _ in module.named_parameters()} - set(arrays)
+    if missing:
+        raise KeyError(f"no value for {sorted(missing)[:5]}")
+    module.load_state_dict(sd)
+
+
+# ---------------------------------------------------------------------------
+# From the JAX package's pytrees
+# ---------------------------------------------------------------------------
+
+def generator_from_jax(params: Params, device: DeviceLike = None) -> Generator:
+    meta = params["meta"]
+    g = Generator(meta["size"], meta["style_dim"], len(params["style"]),
+                  meta["channel_multiplier"])
+    a: Dict[str, np.ndarray] = {"input.input": _np(params["input"], (0, 3, 1, 2))}
+    for i, layer in enumerate(params["style"]):
+        a[f"style.{i + 1}.weight"] = _np(layer["weight"])
+        a[f"style.{i + 1}.bias"] = _np(layer["bias"])
+
+    def modconv(prefix, p):
+        a[f"{prefix}.weight"] = _np(p["weight"], (3, 2, 0, 1))
+        a[f"{prefix}.modulation.weight"] = _np(p["mod"]["weight"])
+        a[f"{prefix}.modulation.bias"] = _np(p["mod"]["bias"])
+
+    def styled(prefix, p):
+        modconv(f"{prefix}.conv", p["conv"])
+        a[f"{prefix}.noise.weight"] = _np(p["noise_weight"]).reshape(1)
+        a[f"{prefix}.activate.bias"] = _np(p["act_bias"])
+
+    def rgb(prefix, p):
+        modconv(f"{prefix}.conv", p["conv"])
+        a[f"{prefix}.bias"] = _np(p["bias"]).reshape(1, 3, 1, 1)
+
+    styled("conv1", params["conv1"])
+    rgb("to_rgb1", params["to_rgb1"])
+    for i, p in enumerate(params["convs"]):
+        styled(f"convs.{i}", p)
+    for i, p in enumerate(params["to_rgbs"]):
+        rgb(f"to_rgbs.{i}", p)
+    for i, n in enumerate(params["noises"]):
+        a[f"noises.noise_{i}"] = _np(n, (0, 3, 1, 2))
+    _load(g, a)
+    return g.to(resolve_device(device))
+
+
+def direction_matrix_from_jax(params: Params, device: DeviceLike = None) -> DirectionMatrix:
+    meta = params["meta"]
+    m = DirectionMatrix(meta["shift_dim"], meta["input_dim"], w_plus=meta["w_plus"],
+                        num_layers=meta["num_layers"], bias="bias" in params)
+    a = {"linear.weight": _np(params["weight"])}
+    if "bias" in params:
+        a["linear.bias"] = _np(params["bias"])
+    _load(m, a)
+    return m.to(resolve_device(device))
+
+
+def _bn(a, prefix, p):
+    a[f"{prefix}.weight"] = _np(p["scale"])
+    a[f"{prefix}.bias"] = _np(p["offset"])
+    a[f"{prefix}.running_mean"] = _np(p["mean"])
+    a[f"{prefix}.running_var"] = _np(p["var"])
+
+
+def deca_from_jax(params: Params, device: DeviceLike = None) -> DECA:
+    """The JAX DECA bundle's ``e_flame`` encoder → :class:`DECA`."""
+    e = params["e_flame"]
+    r = e["resnet"]
+    hwio = (3, 2, 0, 1)
+    a: Dict[str, np.ndarray] = {"E_flame.encoder.conv1.weight": _np(r["conv1"], hwio)}
+    _bn(a, "E_flame.encoder.bn1", r["bn1"])
+    for s, layer in enumerate(r["layers"]):
+        for b, blk in enumerate(layer):
+            pre = f"E_flame.encoder.layer{s + 1}.{b}"
+            for i in (1, 2, 3):
+                a[f"{pre}.conv{i}.weight"] = _np(blk[f"conv{i}"], hwio)
+                _bn(a, f"{pre}.bn{i}", blk[f"bn{i}"])
+            if "downsample" in blk:
+                a[f"{pre}.downsample.0.weight"] = _np(blk["downsample"]["conv"], hwio)
+                _bn(a, f"{pre}.downsample.1", blk["downsample"]["bn"])
+    for idx, fc in ((0, "fc1"), (2, "fc2")):
+        a[f"E_flame.layers.{idx}.weight"] = _np(e[fc]["weight"])
+        a[f"E_flame.layers.{idx}.bias"] = _np(e[fc]["bias"])
+    deca = DECA()
+    _load(deca, a)
+    return deca.to(resolve_device(device))
+
+
+# ---------------------------------------------------------------------------
+# Seeded random init
+# ---------------------------------------------------------------------------
+
+def init_generator(seed: int = 0, size: int = 256, style_dim: int = 512,
+                   n_mlp: int = 8, channel_multiplier: int = 2,
+                   device: DeviceLike = None) -> Generator:
+    """N(0, 1) conv/input/noise; equalized linears N(0, 1)/lr_mul with the
+    biases of their constructors (modulation 1, others 0); zero noise
+    weights and activation/RGB biases."""
+    dev = resolve_device(device)
+    rng = torch.Generator().manual_seed(seed)
+    g = Generator(size, style_dim, n_mlp, channel_multiplier)
+    with torch.no_grad():
+        for m in g.modules():
+            if isinstance(m, EqualLinear):
+                m.weight.copy_(torch.randn(m.weight.shape, generator=rng) / m.lr_mul)
+            elif isinstance(m, ModulatedConv2d):
+                m.weight.copy_(torch.randn(m.weight.shape, generator=rng))
+            elif isinstance(m, ConstantInput):
+                m.input.copy_(torch.randn(m.input.shape, generator=rng))
+            elif isinstance(m, NoiseBuffers):
+                for n in m.as_list():
+                    n.copy_(torch.randn(n.shape, generator=rng))
+    return g.to(dev)
+
+
+def init_direction_matrix(seed: int = 0, shift_dim: int = 512, input_dim: int = 15,
+                          *, w_plus: bool = True, num_layers: int = 8,
+                          bias: bool = True, device: DeviceLike = None) -> DirectionMatrix:
+    """A ~ N(0, 0.03), zero bias (the reference's ``normal`` init)."""
+    dev = resolve_device(device)
+    rng = torch.Generator().manual_seed(seed)
+    m = DirectionMatrix(shift_dim, input_dim, w_plus=w_plus,
+                        num_layers=num_layers, bias=bias)
+    with torch.no_grad():
+        m.linear.weight.copy_(0.03 * torch.randn(m.linear.weight.shape, generator=rng))
+    return m.to(dev)
+
+
+def init_deca(seed: int = 0, device: DeviceLike = None) -> DECA:
+    """ResNet convs N(0, sqrt(2 / (kh·kw·out))), batch norm at identity
+    statistics, MLP weights U(±1/sqrt(in)) with zero biases."""
+    dev = resolve_device(device)
+    rng = torch.Generator().manual_seed(seed)
+    deca = DECA()
+    with torch.no_grad():
+        for m in deca.modules():
+            if isinstance(m, nn.Conv2d):
+                cout, _, kh, kw = m.weight.shape
+                std = math.sqrt(2.0 / (kh * kw * cout))
+                m.weight.copy_(torch.randn(m.weight.shape, generator=rng) * std)
+            elif isinstance(m, nn.Linear):
+                lim = 1.0 / math.sqrt(m.in_features)
+                m.weight.copy_((torch.rand(m.weight.shape, generator=rng) * 2 - 1) * lim)
+                m.bias.zero_()
+    return deca.to(dev)
