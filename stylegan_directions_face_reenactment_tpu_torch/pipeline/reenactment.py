@@ -40,7 +40,7 @@ def reenact_batch(g: Generator, a: DirectionMatrix, deca: DECA,
                   compute_dtype: torch.dtype = torch.float32,
                   fan_params=None, s3fd_params=None,
                   return_target_params: bool = False,
-                  target_lms=None, target_ok=None) -> Tuple[torch.Tensor, ...]:
+                  target_lms=None) -> Tuple[torch.Tensor, ...]:
     """Reenact a batch of target frames onto one source identity.
 
     source_code: (1, n_latent, 512) W+ of the source; params_source /

@@ -6,7 +6,10 @@ These need a CUDA card and nvcc; they are marked ``cuda`` and skip
 elsewhere (the fixture decides, so every worker collects the same tests).
 Run them on the card with:
 
-    python -m pytest tests/test_torch_kernels_cuda.py -m cuda -q
+    python -m pytest tests/test_torch_kernels_cuda.py -m cuda -q --noconftest
+
+(``--noconftest``: ``tests/conftest.py`` sets JAX up, and a machine for
+the port need not have JAX.)
 
 Tolerances: float32 atol 1e-5 (the sums run in another order than
 cuDNN's); bf16 1e-2 relative to max(1, max|plain|) (one bf16 rounding,

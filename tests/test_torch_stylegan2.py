@@ -158,15 +158,55 @@ def test_seeded_init_and_mean_latent():
     assert m.shape == (1, 512) and torch.isfinite(m).all()
 
 
+def mean_rel(got, want):
+    """mean |got - want| / mean |want|, in float64."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).mean() / np.abs(want).mean())
+
+
 def test_bf16_synthesis_tracks_f32(gens):
     """The bf16 path runs the synthesis in bf16 end to end; it must stay
-    near the f32 image (the JAX package's own bf16 bound, mean abs < 0.1,
-    relative here to the image scale of this random-init generator)."""
+    near the f32 image. Mean relative drift read 0.0107 at this seed (0.0073
+    and 0.0094 at the next two); the limit is twice the largest reading."""
     _, g = gens
     z = torch.from_numpy(np.random.RandomState(24).randn(2, 512).astype(np.float32))
     with torch.no_grad():
         f32, _ = generator_forward(g, [z])
         bf16, _ = generator_forward(g, [z], compute_dtype=torch.bfloat16)
     assert bf16.dtype == torch.float32
-    err = float((bf16 - f32).abs().mean() / f32.abs().mean())
-    assert err < 0.1, err
+    err = mean_rel(bf16, f32)
+    assert err < 0.022, err
+
+
+@pytest.mark.parametrize("noise_weight_dtype", ["float32", "bfloat16"])
+def test_bf16_synthesis_matches_jax(gens, noise_weight_dtype):
+    """The port's bf16 synthesis against the JAX package's
+    ``generator_forward(compute_dtype=bfloat16)`` on the same weights.
+
+    With float32 noise weights, as the JAX package keeps them, its synthesis
+    promotes to f32 at the first noise add; with the noise weights held in
+    bf16 (a change to the pytree, not to the package) it stays in bf16 end
+    to end, as the port does. Both ways, the two round in other places (K2
+    rounds once, the jnp activation three times; the convs accumulate in
+    another order), so they are not bit equal:
+
+    - mean relative drift port vs JAX read 0.0083 (float32 noise weights)
+      and 0.0085 (bf16); the limit is about twice that, 0.017;
+    - in bf16 end to end, the port is as far from the f32 image as the JAX
+      package is (ratio read 0.99; limit 1.25).
+    """
+    p, g = gens
+    if noise_weight_dtype == "bfloat16":
+        p = dict(p, conv1=dict(p["conv1"]), convs=[dict(c) for c in p["convs"]])
+        for c in [p["conv1"]] + p["convs"]:
+            c["noise_weight"] = np.asarray(c["noise_weight"], dtype=jnp.bfloat16)
+    z = np.random.RandomState(24).randn(2, 512).astype(np.float32)
+    want, _ = j_generator_forward(p, [jnp.asarray(z)], compute_dtype=jnp.bfloat16)
+    with torch.no_grad():
+        got, _ = generator_forward(g, [torch.from_numpy(z)], compute_dtype=torch.bfloat16)
+    err = mean_rel(got, want)
+    assert err < 0.017, err
+    if noise_weight_dtype == "bfloat16":
+        f32, _ = j_generator_forward(p, [jnp.asarray(z)])
+        ratio = mean_rel(got, f32) / mean_rel(want, f32)
+        assert ratio < 1.25, ratio
