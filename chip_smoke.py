@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path once on one CUDA card.
+"""Drive the PyTorch port's serving paths once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -9,21 +9,31 @@ and nothing of JAX or the JAX package. Phases, in order; any failure exits
 non-zero without printing the last line:
 
 1. device: the card's name, count, power limit;
-2. build: K1 (upfirdn2d) and K2 (fused bias-act) from ``csrc/`` with nvcc,
-   with each kernel's registers and shared memory;
+2. build: K1 (upfirdn2d), K2 (fused bias-act) and K3 (the FAN ConvBlock)
+   from ``csrc/`` with nvcc, with each kernel's registers and shared memory;
 3. kernel parity: each kernel against its plain PyTorch version on the card
-   at every shape the serving path gives it (voxceleb-256, a batch of 16),
-   float32 and bf16, TF32 off;
+   at every shape the serving paths give it (a batch of 16), float32 and
+   bf16, TF32 off;
 4. kernel timing: CUDA events over many launches at those shapes, beside the
-   plain version, one PyTorch library call computing the same function, and
-   the least time the card could take;
-5. the slice: random-init voxceleb-256 generator (channel multiplier 1, 8
-   mapping layers), A (15 → 8·512) and DECA ResNet-50 at 224, served through
-   ``make_reenact_fn`` for requests of 16, 16 and 5 frames in float32 and
-   bf16; launch counts per request, output checks, frames 0-1 of the first
-   request against the same weights on the CPU (float32 and bf16), the
-   median frames/s over rounds of the three requests repeated for at least
-   ``WINDOW_S`` seconds with its spread, and peak memory.
+   plain version, one PyTorch library call computing the same function
+   where there is one, and the least time the card could take, summed over
+   one request;
+5. slice 1, the resize path: random-init voxceleb-256 generator (channel
+   multiplier 1, 8 mapping layers), A (15 → 8·512) and DECA ResNet-50 at
+   224, served through ``make_reenact_fn`` for requests of 16, 16 and 5
+   frames in float32 and bf16; launch counts per request, output checks,
+   frames 0-1 of the first request against the same weights on the CPU
+   (bf16 stage by stage), the median frames/s over rounds of the three
+   requests repeated for at least ``WINDOW_S`` seconds with its spread,
+   peak memory, a breakdown;
+6. slice 2, the default path: the same nets plus S3FD and 2DFAN4 (4
+   modules), served through ``make_fused_reenact_fn`` on uint8 raw frames
+   of 562×1000 (the CLI's width-1000 detection shape) for requests of 16,
+   16 and 5 frames in float32 and bf16, with K1/K2/K3 launch counts of
+   12/13/112 a request; frames 0-1 of the first request checked stage by
+   stage against the CPU (float32, and bf16 against the CPU's bf16 on the
+   same inputs); one request each through the reuse-landmarks
+   paths; a breakdown by stage and by kernel class.
 
 The last two lines are the kernels' numbers and ``{"ok": true, ...}``.
 """
@@ -33,6 +43,7 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import torch
 import torch.nn.functional as F
@@ -49,14 +60,27 @@ CM = MODELS["voxceleb"]["channel_multiplier"]
 BATCH = 16
 REQUESTS = (16, 16, 5)
 K1_PER_REQUEST, K2_PER_REQUEST = 12, 13
+K3_PER_REQUEST, K3_PER_PASS = 112, 56   # two FAN passes of 4 modules x 14 blocks
 F32_TOL, BF16_TOL = 1e-5, 1e-2
+K3_F32_TOL = 1e-5                       # relative to max(1, max|plain|): 2304-term sums
 REPS = 50
-WINDOW_S, MIN_ROUNDS = 5.0, 10       # the slice's timed window, per dtype
-# bf16, frames 0-1 of request 1, mean relative drift on an H100; readings
-# vary between processes with the same seeds (card vs card float32 0.024-
-# 0.057, card vs CPU bf16 image 0.019-0.042, latent 0.006-0.014), and the
-# limits are about twice the largest
-BF16_DRIFT, BF16_CPU_IMG, BF16_CPU_LAT = 0.1, 0.085, 0.028
+WINDOW_S, MIN_ROUNDS = 3.0, 10       # slice 1's timed window, per dtype
+FRAME_HW = (562, 1000)               # a 16:9 frame at the CLI's detection width
+WINDOW2_S, MIN_ROUNDS2 = 5.0, 3      # slice 2's timed window, per dtype
+K3_FLOP_PER_PIXEL = 2 * 9 * (256 * 128 + 128 * 64 + 64 * 64)
+# bf16, frames 0-1 of request 1, mean relative drift on an H100. Between
+# processes with the same seeds the card's bf16 image read 0.024-0.057 from
+# its float32 image, and 0.014-0.082 from the CPU's bf16 image: the
+# random-init DECA -> dp -> A chain turns a last-digit difference in a
+# coefficient into another shift. So the card is held against the CPU's bf16
+# stage by stage, where nothing amplifies: DECA's coefficients from the same
+# frames (read 0.0040-0.0043) and the synthesis from the same latents
+# (0.0058-0.0059). Limits about twice the largest reading.
+BF16_DRIFT, BF16_DECA, BF16_SYNTH = 0.1, 0.009, 0.012
+# slice 2's bf16 stages, card vs CPU bf16 on the same inputs (bf16_stages),
+# read on an H100: SFD's worst head 0.0114, FAN heatmaps 0.0123 (max |diff|
+# 0.0179 of max|heatmap|), DECA coefficients 0.0039. Limits about twice.
+BF16_SFD, BF16_FAN, BF16_FAN_MAX, BF16_DECA2 = 0.025, 0.025, 0.04, 0.009
 
 
 class SmokeFailure(Exception):
@@ -69,15 +93,16 @@ def need(cond, msg):
 
 
 def card_rates(name):
-    """(memory bytes/s, float32 FLOP/s outside the tensor cores) of the card,
-    from the published data sheets (SXM part unless the name says PCIe/NVL)."""
+    """(memory bytes/s, float32 FLOP/s outside the tensor cores, dense bf16
+    tensor-core FLOP/s) of the card, from the published data sheets (SXM
+    part unless the name says PCIe/NVL)."""
     if "H200" in name:
-        return 4.8e12, 67e12
+        return 4.8e12, 67e12, 989e12
     if "H100" in name and "PCIe" in name:
-        return 2.0e12, 51e12
+        return 2.0e12, 51e12, 756e12
     if "H100" in name and "NVL" in name:
-        return 3.9e12, 60e12
-    return 3.35e12, 67e12
+        return 3.9e12, 60e12, 835e12
+    return 3.35e12, 67e12, 989e12
 
 
 def nvidia_smi():
@@ -162,6 +187,26 @@ def k2_inputs(dtype, gen, with_mapping=False):
     return out
 
 
+def k3_inputs(dtype, gen):
+    """(shape, calls of that shape in one FAN pass, x, K3Args) for each K3
+    shape of the serving path: folds near 1 and 0, He-scaled weights."""
+    from stylegan_directions_face_reenactment_tpu_torch.ops.fused_conv_block import (
+        make_k3_args)
+    from stylegan_directions_face_reenactment_tpu_torch.ops.main_path import (
+        fused_conv_block_calls)
+    out = []
+    for shape, n in sorted(Counter(fused_conv_block_calls(BATCH)).items(),
+                           key=lambda kv: -kv[0][2]):
+        cs = ((256, 128), (128, 64), (64, 64))
+        inv = [1 + 0.1 * torch.randn(ci, generator=gen, device="cuda") for ci, _ in cs]
+        off = [0.1 * torch.randn(ci, generator=gen, device="cuda") for ci, _ in cs]
+        w = [torch.randn(co, ci, 3, 3, generator=gen, device="cuda") * (2.0 / (9 * co)) ** 0.5
+             for ci, co in cs]
+        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        out.append((shape, n, x, make_k3_args(inv, off, w, dtype)))
+    return out
+
+
 def library_k1(x, k, call):
     """One cuDNN depthwise call computing the same function, as a
     closure over ``x`` and a depthwise weight built here, once, so that a
@@ -181,8 +226,10 @@ def phase_parity():
         make_kernel, upfirdn2d)
     from stylegan_directions_face_reenactment_tpu_torch.ops.upfirdn2d_kernel import (
         upfirdn2d_cuda)
+    from stylegan_directions_face_reenactment_tpu_torch.ops.fused_conv_block import (
+        fused_conv_block_cuda, fused_conv_block_plain)
     k = make_kernel((1, 3, 3, 1), gain=4)
-    worst = {"upfirdn2d": 0.0, "fused_bias_act": 0.0}
+    worst = {"upfirdn2d": 0.0, "fused_bias_act": 0.0, "fused_conv_block": 0.0}
     gen = torch.Generator(device="cuda").manual_seed(0)
     for dtype in (torch.float32, torch.bfloat16):
         for call, x in k1_inputs(dtype, gen):
@@ -211,6 +258,18 @@ def phase_parity():
             need(err <= lim, f"fused_bias_act {shape} {dtype} disagrees")
             if dtype == torch.float32:
                 worst["fused_bias_act"] = max(worst["fused_bias_act"], err)
+        for shape, _, x, args in k3_inputs(dtype, gen):
+            got = fused_conv_block_cuda(x, args)
+            want = fused_conv_block_plain(x, args)
+            torch.cuda.synchronize()
+            err, scale = max_err(got, want), max(1.0, float(want.float().abs().max()))
+            lim = K3_F32_TOL * scale if dtype == torch.float32 else BF16_TOL * scale
+            print(f"[parity] fused_conv_block {shape} {str(dtype)[6:]}: max abs err "
+                  f"{err:.3g} (limit {lim:.3g}; max|plain| {scale:.3g})")
+            need(got.shape == want.shape and err <= lim,
+                 f"fused_conv_block {shape} {dtype} disagrees with its plain version")
+            if dtype == torch.float32:
+                worst["fused_conv_block"] = max(worst["fused_conv_block"], err)
     return worst
 
 
@@ -222,7 +281,9 @@ def phase_timing(card_name):
         make_kernel, upfirdn2d, upfirdn2d_output_shape)
     from stylegan_directions_face_reenactment_tpu_torch.ops.upfirdn2d_kernel import (
         upfirdn2d_cuda)
-    bw, flops = card_rates(card_name)
+    from stylegan_directions_face_reenactment_tpu_torch.ops.fused_conv_block import (
+        fused_conv_block_cuda, fused_conv_block_plain)
+    bw, flops, bf16_flops = card_rates(card_name)
     k = make_kernel((1, 3, 3, 1), gain=4)
     gen = torch.Generator(device="cuda").manual_seed(1)
     out = {}
@@ -266,23 +327,46 @@ def phase_timing(card_name):
             t["bytes"] += nbytes
             t["ops"] += ops
         out[("fused_bias_act", tag)] = t
+        # K3: every call of the two FAN passes of a request
+        rate = flops if dtype == torch.float32 else bf16_flops
+        t = {"ms": 0.0, "plain_ms": 0.0, "library_ms": None, "bound_ms": 0.0,
+             "bytes": 0, "ops": 0}
+        for shape, n, x, args in k3_inputs(dtype, gen):
+            calls = 2 * n
+            weights = sum(w.numel() for w in args.wk) + 2 * (256 + 128 + 64)
+            nbytes = (2 * x.numel() + weights) * x.element_size()
+            ops = K3_FLOP_PER_PIXEL * shape[0] * shape[2] * shape[3]
+            bound = 1e3 * max(nbytes / bw, ops / rate)
+            ms = time_ms(lambda: fused_conv_block_cuda(x, args))
+            plain = time_ms(lambda: fused_conv_block_plain(x, args))
+            print(f"[timing] fused_conv_block {shape} {tag} x{calls} a request: kernel "
+                  f"{ms:.4f} ms ({ops / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, "
+                  f"bound {bound:.4f} ms (operations at {rate / 1e12:.0f} TFLOP/s)")
+            t["ms"] += calls * ms
+            t["plain_ms"] += calls * plain
+            t["bound_ms"] += calls * bound
+            t["bytes"] += calls * nbytes
+            t["ops"] += calls * ops
+        out[("fused_conv_block", tag)] = t
     for (name, tag), t in out.items():
         lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
         print(f"[timing] {name} per request of {BATCH} frames, {tag}: kernel "
               f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library {lib}, "
               f"bound {t['bound_ms']:.4f} ms ({t['bytes'] / 1e9:.3f} GB over "
-              f"{bw / 1e12:.2f} TB/s)")
+              f"{bw / 1e12:.2f} TB/s; {t['ops'] / 1e12:.3f} TFLOP)")
     return out
 
 
 def phase_slice():
-    from stylegan_directions_face_reenactment_tpu_torch.geometry import initialize_directions
+    from stylegan_directions_face_reenactment_tpu_torch.geometry import (
+        initialize_directions, make_shift_vector)
     from stylegan_directions_face_reenactment_tpu_torch.models.deca import calculate_shapemodel
+    from stylegan_directions_face_reenactment_tpu_torch.models.direction_matrix import (
+        direction_matrix_forward)
     from stylegan_directions_face_reenactment_tpu_torch.models.stylegan2 import (
         generator_forward, mapping, mean_latent, n_latent_for, style_to_wplus, synthesis)
-    from stylegan_directions_face_reenactment_tpu_torch.ops.fused_act import fused_bias_act_cuda
-    from stylegan_directions_face_reenactment_tpu_torch.ops.upfirdn2d_kernel import upfirdn2d_cuda
-    from stylegan_directions_face_reenactment_tpu_torch.pipeline import make_reenact_fn
+    from stylegan_directions_face_reenactment_tpu_torch.pipeline import (
+        generate_image, make_reenact_fn)
     from stylegan_directions_face_reenactment_tpu_torch.weights import (
         init_deca, init_direction_matrix, init_generator)
 
@@ -314,18 +398,17 @@ def phase_slice():
         checks run outside them."""
         busy = 0.0
         for r, tgt in enumerate(targets):
-            upfirdn2d_cuda.launches = 0
-            fused_bias_act_cuda.launches = 0
+            reset_counts()
             t0 = time.perf_counter()
-            img, lat = fn(source_code, params_source, angles_source, tgt)
+            img, lat, p_t, a_t = fn(source_code, params_source, angles_source, tgt)
             torch.cuda.synchronize()
             busy += time.perf_counter() - t0
-            k1, k2 = upfirdn2d_cuda.launches, fused_bias_act_cuda.launches
-            need((k1, k2) == (K1_PER_REQUEST, K2_PER_REQUEST),
-                 f"{tag} request {r}: K1/K2 launched {k1}/{k2} times, expected "
-                 f"{K1_PER_REQUEST}/{K2_PER_REQUEST}")
-            launches[0] += k1
-            launches[1] += k2
+            got = read_counts()
+            need(got == (K1_PER_REQUEST, K2_PER_REQUEST, 0),
+                 f"{tag} request {r}: K1/K2/K3 launched {got} times, expected "
+                 f"{K1_PER_REQUEST}/{K2_PER_REQUEST}/0")
+            launches[0] += got[0]
+            launches[1] += got[1]
             t = tgt.shape[0]
             need(tuple(img.shape) == (t, SIZE, SIZE, 3) and
                  tuple(lat.shape) == (t, n_lat, 512),
@@ -333,7 +416,8 @@ def phase_slice():
             need(bool(torch.isfinite(img).all()) and bool(torch.isfinite(lat).all()),
                  f"{tag} request {r}: non-finite output")
             if r == 0 and keep_first:
-                first[tag] = (img[:2].float().cpu(), lat[:2].float().cpu())
+                first[tag] = (img[:2].float().cpu(), lat[:2].float().cpu(),
+                              {k: v[:2].cpu() for k, v in p_t.items()}, a_t[:2].cpu())
         return busy
 
     results, launches, first = {}, [0, 0], {}
@@ -341,7 +425,7 @@ def phase_slice():
     for dtype in (torch.float32, torch.bfloat16):
         tag = str(dtype)[6:]
         fn = make_reenact_fn(g, a, deca, spec, truncation=0.7, truncation_latent=trunc,
-                             compute_dtype=dtype)
+                             compute_dtype=dtype, return_target_params=True)
         torch.cuda.reset_peak_memory_stats()
         serve(fn, tag, keep_first=True)                 # warm-up round
         rates, t_start = [], time.perf_counter()
@@ -371,7 +455,7 @@ def phase_slice():
                                       {k: v.cpu() for k, v in params_source.items()},
                                       angles_source.cpu(), targets[0][:2].cpu())
     want_img, want_lat = want["float32"]
-    got_img, got_lat = first["float32"]
+    got_img, got_lat = first["float32"][:2]
     img_err = float((got_img - want_img).abs().max())
     lat_err = float((got_lat - want_lat).abs().max())
     # the CPU-vs-JAX bounds of the repo's tests: images rtol 1e-3, atol
@@ -384,19 +468,37 @@ def phase_slice():
           f"{lat_err:.3g} (rtol 1e-4, atol 1e-4·max: {'ok' if lat_ok else 'FAIL'})")
     need(img_ok and lat_ok, "the card disagrees with the CPU")
     # bf16 rounds in other places on the card (cuDNN) and on the CPU, as the
-    # port and the JAX package do (tests/test_torch_reenact.py)
-    bf_img, bf_lat = first["bfloat16"]
+    # port and the JAX package do (tests/test_torch_reenact.py); held stage
+    # by stage (see BF16_DECA)
+    bf_img, bf_lat, bf_p, bf_ang = first["bfloat16"]
     drift = mean_rel(bf_img, got_img)
     cpu_drift = mean_rel(want["bfloat16"][0], want_img)
-    img16 = mean_rel(bf_img, want["bfloat16"][0])
-    lat16 = mean_rel(bf_lat, want["bfloat16"][1])
+    whole = mean_rel(bf_img, want["bfloat16"][0])
+    with torch.inference_mode():
+        cpu_p, _ = calculate_shapemodel(cdeca, targets[0][:2].cpu(),
+                                        compute_dtype=torch.bfloat16)
+        deca16 = mean_rel(torch.cat([bf_p[k] for k in sorted(bf_p)], dim=1),
+                          torch.cat([cpu_p[k] for k in sorted(cpu_p)], dim=1))
+        # dp -> A -> truncation in float32 from the card's coefficients, then
+        # the CPU's bf16 synthesis
+        ps2 = {k: v.cpu().expand((2,) + tuple(v.shape[1:])) for k, v in params_source.items()}
+        shift = direction_matrix_forward(ca, make_shift_vector(
+            spec, ps2, bf_p, angles_source.cpu().expand(2, 3), bf_ang))
+        img_c, lat_c = generate_image(
+            cg, source_code.cpu().expand((2,) + tuple(source_code.shape[1:])),
+            truncation=0.7, truncation_latent=trunc.cpu(), shift_code=shift,
+            input_is_latent=True, return_latents=True, compute_dtype=torch.bfloat16)
+    lat16_ok = allclose_scaled(bf_lat, lat_c, 1e-4, 1e-4)
+    synth16 = mean_rel(bf_img, img_c)
     print(f"[slice] bf16, frames 0-1 of request 1, mean relative drift: card vs card "
           f"float32 {drift:.4f} (limit {BF16_DRIFT}; CPU bf16 vs CPU float32 "
-          f"{cpu_drift:.4f}); card vs CPU bf16: image "
-          f"{img16:.4f} (limit {BF16_CPU_IMG}), latent {lat16:.4f} (limit "
-          f"{BF16_CPU_LAT})")
+          f"{cpu_drift:.4f}; card vs CPU bf16 end to end {whole:.4f}, not held); card "
+          f"vs CPU bf16 stage by stage: DECA coefficients {deca16:.4f} (limit "
+          f"{BF16_DECA}), latents from the card's coefficients rtol 1e-4, atol "
+          f"1e-4·max: {'ok' if lat16_ok else 'FAIL'}, synthesis from the card's latents "
+          f"{synth16:.4f} (limit {BF16_SYNTH})")
     need(drift < BF16_DRIFT, "the bf16 path drifted from float32")
-    need(img16 < BF16_CPU_IMG and lat16 < BF16_CPU_LAT,
+    need(deca16 < BF16_DECA and lat16_ok and synth16 < BF16_SYNTH,
          "the card's bf16 path disagrees with the CPU's")
     phase_breakdown(g, a, deca, spec, trunc,
                     (source_code, params_source, angles_source), targets[0])
@@ -405,6 +507,8 @@ def phase_slice():
 
 def _category(kernel_name):
     n = kernel_name.lower()
+    if "conv3x3_stage" in n:
+        return "K3 fused conv block"
     if "upfirdn2d_kernel" in n:
         return "K1 upfirdn2d"
     if "bias_act" in n:
@@ -423,8 +527,6 @@ def phase_breakdown(g, a, deca, spec, trunc, source, tgt):
     """Where one request of 16 frames spends the card's time: the stages by
     CUDA events (with the extra peak memory each takes), the kernels by
     torch.profiler, and the device's busy share of the request's wall time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from stylegan_directions_face_reenactment_tpu_torch.geometry import make_shift_vector
     from stylegan_directions_face_reenactment_tpu_torch.models.deca import calculate_shapemodel
     from stylegan_directions_face_reenactment_tpu_torch.models.direction_matrix import (
@@ -451,47 +553,395 @@ def phase_breakdown(g, a, deca, spec, trunc, source, tgt):
                                            input_is_latent=True, compute_dtype=dtype),
             }
             for name, fn in stages.items():
-                ms = time_ms(fn, reps=10)
-                torch.cuda.synchronize()
-                base = torch.cuda.memory_allocated()
-                torch.cuda.reset_peak_memory_stats()
-                fn()
-                torch.cuda.synchronize()
-                extra = torch.cuda.max_memory_allocated() - base
-                print(f"[breakdown] {tag} {name}, {t} frames: {ms:.3f} ms, extra peak "
-                      f"memory {extra / 2**30:.3f} GiB")
+                stage_ms(tag, name, fn, t)
         fn = make_reenact_fn(g, a, deca, spec, truncation=0.7, truncation_latent=trunc,
                              compute_dtype=dtype)
-        fn(code, ps, angs, tgt)
+        profile_request(tag, f"one request of {t} frames", lambda: fn(code, ps, angs, tgt))
+
+
+def stage_ms(tag, name, fn, frames, reps=10):
+    """A stage's ms by CUDA events and the extra peak memory one call takes."""
+    ms = time_ms(fn, reps=reps)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    print(f"[breakdown] {tag} {name}, {frames} frames: {ms:.3f} ms, extra peak "
+          f"memory {extra / 2**30:.3f} GiB")
+    return ms, extra
+
+
+def profile_request(tag, label, run):
+    """Device time by kernel class and the busy share of one warm call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall_us = (time.perf_counter() - t0) * 1e6
+    per_cat, n_kernels, others = {}, 0, []
+    for e in prof.key_averages():
+        dev = getattr(e, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(e, "self_cuda_time_total", 0)
+        # device-side events only: a CPU range (an aten op, an autograd
+        # Function) is credited with the kernels it launched as well
+        if dev > 0 and e.device_type == DeviceType.CUDA:
+            cat = _category(e.key)
+            per_cat[cat] = per_cat.get(cat, 0.0) + dev
+            n_kernels += e.count
+            if cat == "other":
+                others.append((dev, e.key))
+    busy = sum(per_cat.values())
+    print(f"[breakdown] {tag} {label} under the profiler: wall "
+          f"{wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
+          f"({100 * busy / wall_us:.1f} %, idle {100 - 100 * busy / wall_us:.1f} %), "
+          f"{n_kernels} kernel launches")
+    for cat, us in sorted(per_cat.items(), key=lambda kv: -kv[1]):
+        print(f"[breakdown] {tag}   {cat}: {us / 1e3:.3f} ms "
+              f"({100 * us / max(busy, 1e-9):.1f} % of device time)")
+    for us, key in sorted(others, reverse=True)[:4]:
+        print(f"[breakdown] {tag}     other: {us / 1e3:.3f} ms {key[:100]}")
+
+
+def build_slice2_nets(device):
+    """The served nets from their seeds: generator, A, DECA, S3FD, 2DFAN4."""
+    from stylegan_directions_face_reenactment_tpu_torch.weights import (
+        init_deca, init_direction_matrix, init_fan, init_generator, init_s3fd)
+    return (init_generator(0, SIZE, 512, 8, CM, device=device),
+            init_direction_matrix(1, 512, 15, w_plus=True, num_layers=8, device=device),
+            init_deca(2, device=device), init_s3fd(5, device=device),
+            init_fan(6, 4, device=device))
+
+
+def counts():
+    from stylegan_directions_face_reenactment_tpu_torch.ops.fused_act import fused_bias_act_cuda
+    from stylegan_directions_face_reenactment_tpu_torch.ops.fused_conv_block import (
+        fused_conv_block_cuda)
+    from stylegan_directions_face_reenactment_tpu_torch.ops.upfirdn2d_kernel import upfirdn2d_cuda
+    return (upfirdn2d_cuda, fused_bias_act_cuda, fused_conv_block_cuda)
+
+
+def reset_counts():
+    for k in counts():
+        k.launches = 0
+
+
+def read_counts():
+    return tuple(k.launches for k in counts())
+
+
+def flips_explained(hm_card, hm_cpu, atol):
+    """(B, 68) mask of landmarks whose card and CPU peaks may differ: the two
+    argmax cells hold values within ``atol`` on the card, or, at one cell, a
+    neighbour difference that sets the ±0.25 step is within ``atol``."""
+    b, h, w, n = hm_card.shape
+    fc = hm_card.permute(0, 3, 1, 2).reshape(b, n, h * w)
+    fp = hm_cpu.permute(0, 3, 1, 2).reshape(b, n, h * w)
+    ic, ip = fc.argmax(-1), fp.argmax(-1)
+    near_tie = (fc.gather(2, ic[..., None]) - fc.gather(2, ip[..., None]))[..., 0] <= atol
+
+    def step_ambiguous(flat, idx):
+        y, x = idx // w, idx % w
+        def at(dy, dx):
+            yy, xx = (y + dy).clamp(0, h - 1), (x + dx).clamp(0, w - 1)
+            return flat.gather(2, (yy * w + xx)[..., None])[..., 0]
+        return ((at(0, 1) - at(0, -1)).abs() <= atol) | ((at(1, 0) - at(-1, 0)).abs() <= atol)
+
+    return torch.where(ic == ip, step_ambiguous(fc, ic), near_tie)
+
+
+def phase_slice2():
+    """The default per-frame path on raw frames, float32 and bf16."""
+    from stylegan_directions_face_reenactment_tpu_torch.geometry import initialize_directions
+    from stylegan_directions_face_reenactment_tpu_torch.models.face import (
+        box_to_center_scale, crop_faces, detect_faces, fan_forward, ffhq_crop_device,
+        heatmaps_to_landmarks, landmarks_to_image_coords, s3fd_forward,
+        select_reference_face)
+    from stylegan_directions_face_reenactment_tpu_torch.models.stylegan2 import (
+        mapping, mean_latent, n_latent_for, style_to_wplus, synthesis)
+    from stylegan_directions_face_reenactment_tpu_torch.pipeline import (
+        make_fused_reenact_fn, make_reenact_fn, reenact_batch, source_shape)
+
+    g, a, deca, sfd, fan = build_slice2_nets(None)
+    need(fan.conv1.weight.is_cuda and sfd.conv1_1.weight.is_cuda,
+         "the face nets did not land on the card")
+    spec = initialize_directions("voxceleb", 15, 6.0)
+    n_lat = n_latent_for(SIZE)
+    with torch.inference_mode():
+        trunc = mean_latent(g, torch.Generator().manual_seed(3), 4096)
+        z = torch.randn(1, 512, generator=torch.Generator().manual_seed(4)).cuda()
+        source_code = style_to_wplus(g, [mapping(g, z)])
+        params_source, angles_source = source_shape(deca, synthesis(g, source_code), fan, sfd)
+    src = (source_code, params_source, angles_source)
+    gen = torch.Generator().manual_seed(20)
+    # raw uint8 frames, uploaded before the timed requests
+    frames = [torch.randint(0, 256, (t,) + FRAME_HW + (3,), generator=gen,
+                            dtype=torch.uint8).cuda() for t in REQUESTS]
+    torch.cuda.synchronize()
+    expect = (K1_PER_REQUEST, K2_PER_REQUEST, K3_PER_REQUEST)
+
+    def serve(fn, tag):
+        busy = 0.0
+        for r, fr in enumerate(frames):
+            reset_counts()
             t0 = time.perf_counter()
-            fn(code, ps, angs, tgt)
+            reen, ok, in_frame, pts = fn(*src, fr)
             torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        per_cat, n_kernels, others = {}, 0, []
-        for e in prof.key_averages():
-            dev = getattr(e, "self_device_time_total", None)
-            if dev is None:
-                dev = getattr(e, "self_cuda_time_total", 0)
-            # device-side events only: a CPU range (an aten op, an autograd
-            # Function) is credited with the kernels it launched as well
-            if dev > 0 and e.device_type == DeviceType.CUDA:
-                cat = _category(e.key)
-                per_cat[cat] = per_cat.get(cat, 0.0) + dev
-                n_kernels += e.count
-                if cat == "other":
-                    others.append((dev, e.key))
-        busy = sum(per_cat.values())
-        print(f"[breakdown] {tag} one request of {t} frames under the profiler: wall "
-              f"{wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms "
-              f"({100 * busy / wall_us:.1f} %, idle {100 - 100 * busy / wall_us:.1f} %), "
-              f"{n_kernels} kernel launches")
-        for cat, us in sorted(per_cat.items(), key=lambda kv: -kv[1]):
-            print(f"[breakdown] {tag}   {cat}: {us / 1e3:.3f} ms "
-                  f"({100 * us / max(busy, 1e-9):.1f} % of device time)")
-        for us, key in sorted(others, reverse=True)[:4]:
-            print(f"[breakdown] {tag}     other: {us / 1e3:.3f} ms {key[:100]}")
+            busy += time.perf_counter() - t0
+            got = read_counts()
+            need(got == expect, f"{tag} request {r}: K1/K2/K3 launched {got} times, "
+                 f"expected {expect}")
+            for i in range(3):
+                launches[i] += got[i]
+            t = fr.shape[0]
+            need(tuple(reen.shape) == (t, SIZE, SIZE, 3) and reen.dtype == torch.uint8,
+                 f"{tag} request {r}: reenacted {tuple(reen.shape)} {reen.dtype}")
+            need(tuple(pts.shape) == (t, 68, 2) and pts.dtype == torch.float32
+                 and bool(torch.isfinite(pts).all()),
+                 f"{tag} request {r}: landmarks {tuple(pts.shape)} {pts.dtype} not finite "
+                 "float32")
+            need(ok.shape == (t,) and in_frame.shape == (t,), f"{tag} request {r}: masks")
+            oks[tag] = oks.get(tag, 0) + int(ok.sum())
+        return busy
+
+    results, launches, oks = {}, [0, 0, 0], {}
+    frames_n = sum(REQUESTS)
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype)[6:]
+        fn = make_fused_reenact_fn(g, a, deca, spec, sfd, fan, truncation=0.7,
+                                   truncation_latent=trunc, compute_dtype=dtype,
+                                   fan_params=fan, s3fd_params=sfd, outputs="reenact")
+        torch.cuda.reset_peak_memory_stats()
+        serve(fn, tag)                                  # warm-up round
+        rates, t_start = [], time.perf_counter()
+        while len(rates) < MIN_ROUNDS2 or time.perf_counter() - t_start < WINDOW2_S:
+            rates.append(frames_n / serve(fn, tag))
+        rates.sort()
+        med = statistics.median(rates)
+        peak = torch.cuda.max_memory_allocated()
+        results[tag] = {"fps": med, "fps_min": rates[0], "fps_max": rates[-1],
+                        "rounds": len(rates), "peak_bytes": peak}
+        print(f"[slice2] {tag}: median {med:.2f} frames/s over {len(rates)} rounds of "
+              f"requests {REQUESTS} of {FRAME_HW[0]}x{FRAME_HW[1]} uint8 frames in "
+              f"{time.perf_counter() - t_start:.2f} s (min {rates[0]:.2f}, max "
+              f"{rates[-1]:.2f}; host clock inside the requests, frames already on the "
+              f"card); peak memory {peak / 2**30:.3f} GiB; K1/K2/K3 launches "
+              f"{'/'.join(map(str, expect))} a request; frames passing the detector "
+              f"gate: {oks[tag]} (the whole-frame fallback and the -180 sentinel for "
+              f"the rest)")
+
+    # the reuse-landmark paths, one request each (float32)
+    fr0 = frames[0]
+    fused_reuse = make_fused_reenact_fn(g, a, deca, spec, sfd, fan, truncation=0.7,
+                                        truncation_latent=trunc, reuse_landmarks=True,
+                                        outputs="full")
+    reset_counts()
+    reen_r, lat_r, crops_u8, ok_r, _, _ = fused_reuse(*src, fr0)
+    torch.cuda.synchronize()
+    got = read_counts()
+    need(got == (K1_PER_REQUEST, K2_PER_REQUEST, K3_PER_PASS),
+         f"fused reuse_landmarks request: K1/K2/K3 launched {got} times")
+    crops_gan = crops_u8.float() / 127.5 - 1.0
+    rs = torch.Generator().manual_seed(21)
+    planted = (torch.rand(fr0.shape[0], 68, 2, generator=rs) * 110 + 70).cuda()
+    ok_all = torch.ones(fr0.shape[0], dtype=torch.bool, device="cuda")
+    reuse_fn = make_reenact_fn(g, a, deca, spec, truncation=0.7, truncation_latent=trunc,
+                               reuse_landmarks=True, return_target_params=True)
+    reset_counts()
+    img_p, lat_p, pt_p, at_p = reuse_fn(*src, crops_gan, planted, ok_all)
+    torch.cuda.synchronize()
+    got_p = read_counts()
+    need(got_p == (K1_PER_REQUEST, K2_PER_REQUEST, 0),
+         f"make_reenact_fn(reuse_landmarks) request: K1/K2/K3 launched {got_p} times")
+    need(bool((at_p != -180.0).all()) and bool((pt_p["pose"].abs().sum(1) > 0).all()),
+         "planted landmarks with ok=True must give coefficients, not the sentinel")
+    align_fn = make_reenact_fn(g, a, deca, spec, truncation=0.7, truncation_latent=trunc,
+                               fan_params=fan, s3fd_params=sfd)
+    reset_counts()
+    img_a, _ = align_fn(*src, crops_gan)
+    torch.cuda.synchronize()
+    got_a = read_counts()
+    need(got_a == (K1_PER_REQUEST, K2_PER_REQUEST, K3_PER_PASS),
+         f"make_reenact_fn(fan, s3fd) request: K1/K2/K3 launched {got_a} times")
+    print(f"[slice2] reuse paths, request 1: fused reuse_landmarks K1/K2/K3 {got} "
+          f"(frames passing the gate {int(ok_r.sum())}); make_reenact_fn with planted "
+          f"in-crop landmarks and ok=True {got_p} (kpt68 warp on every frame; angles "
+          f"{[round(float(v), 2) for v in at_p[0]]}); make_reenact_fn(fan, s3fd) on the "
+          f"crops {got_a}")
+
+    # frames 0-1 of request 1, float32, stage by stage against the CPU
+    full = make_fused_reenact_fn(g, a, deca, spec, sfd, fan, truncation=0.7,
+                                 truncation_latent=trunc, fan_params=fan,
+                                 s3fd_params=sfd, outputs="full")
+    reen_f, lat_f, crops_f, ok_f, in_f, pts_f = full(*src, fr0)
+    with torch.inference_mode():
+        imgs = fr0.float()
+        boxes, valid = detect_faces(sfd, imgs, subtract_mean=False)
+        best, ok = select_reference_face(boxes.float(), valid)
+        center, scale = box_to_center_scale(best)
+        crops01 = crop_faces(imgs, center, scale, 256) / 255.0
+        hm = fan_forward(fan, crops01)[-1].float()
+        pts = landmarks_to_image_coords(heatmaps_to_landmarks(hm), center, scale)
+        crops, _ = ffhq_crop_device(imgs, pts, 256)
+        heads = s3fd_forward(sfd, imgs[:2])
+    need(torch.equal(pts, pts_f) and torch.equal(crops.to(torch.uint8), crops_f),
+         "the stage-wise run disagrees with the fused request on the card")
+    cg, ca, cdeca, csfd, cfan = build_slice2_nets("cpu")
+    with torch.inference_mode():
+        heads_cpu = s3fd_forward(csfd, imgs[:2].cpu())
+        head_err = max(float((h.cpu() - hc).abs().max() / hc.abs().max())
+                       for h, hc in zip(heads, heads_cpu))
+        head_ok = all(allclose_scaled(h.cpu(), hc, 1e-3, 1e-4) for h, hc in zip(heads, heads_cpu))
+        hm_cpu = fan_forward(cfan, crops01[:2].cpu())[-1].float()
+        hm_atol = 1e-4 * float(hm_cpu.abs().max())
+        hm_ok = allclose_scaled(hm[:2].cpu(), hm_cpu, 1e-3, 1e-4)
+        pts_cpu = landmarks_to_image_coords(heatmaps_to_landmarks(hm_cpu),
+                                            center[:2].cpu(), scale[:2].cpu())
+        differ = (pts_cpu != pts[:2].cpu()).any(-1)
+        explained = flips_explained(hm[:2].cpu(), hm_cpu, hm_atol)
+        crops_cpu, _ = ffhq_crop_device(imgs[:2].cpu(), pts[:2].cpu(), 256)
+        crop_err = float((crops_cpu - crops[:2].cpu()).abs().max())
+        want_img, want_lat = reenact_batch(
+            cg, ca, cdeca, spec, source_code.cpu(),
+            {k: v.cpu() for k, v in params_source.items()}, angles_source.cpu(),
+            crops_f[:2].cpu().float() / 127.5 - 1.0, truncation=0.7,
+            truncation_latent=trunc.cpu(), fan_params=cfan, s3fd_params=csfd)
+        img_ok = allclose_scaled(reen_f[:2].cpu(), want_img, 1e-3, 2e-4)
+        lat_ok = allclose_scaled(lat_f[:2].cpu(), want_lat, 1e-4, 1e-4)
+        src_cpu = (source_code.cpu(), {k: v.cpu() for k, v in params_source.items()},
+                   angles_source.cpu())
+        want_p, want_lp = make_reenact_fn(
+            cg, ca, cdeca, spec, truncation=0.7, truncation_latent=trunc.cpu(),
+            reuse_landmarks=True, device="cpu")(
+                *src_cpu, crops_gan[:2].cpu(), planted[:2].cpu(), ok_all[:2].cpu())
+        reuse_ok = (allclose_scaled(img_p[:2].cpu(), want_p, 1e-3, 2e-4)
+                    and allclose_scaled(lat_p[:2].cpu(), want_lp, 1e-4, 1e-4))
+    print(f"[slice2] card vs CPU, frames 0-1 of request 1, float32, stage by stage: "
+          f"SFD heads max err {head_err:.3g} of max|head| (rtol 1e-3, atol 1e-4*max: "
+          f"{'ok' if head_ok else 'FAIL'}); FAN heatmaps on the card's crops "
+          f"{float((hm[:2].cpu() - hm_cpu).abs().max()):.3g} (atol {hm_atol:.3g}: "
+          f"{'ok' if hm_ok else 'FAIL'}); landmarks differing {int(differ.sum())} of 136, "
+          f"all within a near-tie: {bool((~differ | explained).all())}; FFHQ crops from "
+          f"the card's landmarks max diff {crop_err:.0f} (limit 1); the rest from the "
+          f"card's crops: image {'ok' if img_ok else 'FAIL'}, latent "
+          f"{'ok' if lat_ok else 'FAIL'}; planted-landmark request: "
+          f"{'ok' if reuse_ok else 'FAIL'}")
+    need(head_ok and hm_ok and bool((~differ | explained).all()) and crop_err <= 1.0
+         and img_ok and lat_ok and reuse_ok, "the card disagrees with the CPU on slice 2")
+    bf16_stages(sfd, fan, deca, (csfd, cfan, cdeca), imgs[:1], crops01[:2], crops_f[:2])
+    need(bool(torch.isfinite(reen_f).all()) and bool(torch.isfinite(lat_f).all())
+         and tuple(lat_f.shape) == (fr0.shape[0], n_lat, 512), "slice 2 outputs")
+    phase_breakdown2(g, a, deca, sfd, fan, spec, trunc, src, fr0)
+    return results, launches
+
+
+def bf16_stages(sfd, fan, deca, cpu_nets, frames, crops01, crops_u8):
+    """Slice 2's bf16 stages on the card against the CPU's bf16 on the same
+    inputs (end to end the random-init chain amplifies last digits, as in
+    slice 1): the SFD heads on the same raw frame, the FAN heatmaps on the
+    same crops (relative to their max), DECA's coefficients from the same
+    aligned 224s (the card's bf16 SFD + FAN alignment of the card's FFHQ
+    crops, taken as ok so that no coefficient is zeroed)."""
+    from stylegan_directions_face_reenactment_tpu_torch.models.deca import calculate_shapemodel
+    from stylegan_directions_face_reenactment_tpu_torch.models.face import (
+        fan_forward, s3fd_forward)
+    from stylegan_directions_face_reenactment_tpu_torch.pipeline import make_fan_align
+    csfd, cfan, cdeca = cpu_nets
+    bf = torch.bfloat16
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        heads = s3fd_forward(sfd, frames.to(bf))
+        heads_cpu = s3fd_forward(csfd, frames.cpu().to(bf))
+        sfd16 = max(mean_rel(h.cpu(), hc) for h, hc in zip(heads, heads_cpu))
+        hm = fan_forward(fan, crops01.to(bf))[-1].float().cpu()
+        hm_cpu = fan_forward(cfan, crops01.cpu().to(bf))[-1].float()
+        fan16 = mean_rel(hm, hm_cpu)
+        fan16_max = float((hm - hm_cpu).abs().max() / hm_cpu.abs().max())
+        crops_gan = crops_u8.float() / 127.5 - 1.0
+        aligned, _ = make_fan_align(fan, sfd, compute_dtype=bf, return_ok=True)(
+            (crops_gan + 1.0) / 2.00001)
+        ok = torch.ones(crops_gan.shape[0], dtype=torch.bool)
+        p, _ = calculate_shapemodel(deca, crops_gan, align_fn=lambda _: (aligned, ok.cuda()),
+                                    compute_dtype=bf)
+        p_cpu, _ = calculate_shapemodel(cdeca, crops_gan.cpu(),
+                                        align_fn=lambda _: (aligned.cpu(), ok), compute_dtype=bf)
+        deca16 = mean_rel(torch.cat([p[k].cpu() for k in sorted(p)], dim=1),
+                          torch.cat([p_cpu[k] for k in sorted(p_cpu)], dim=1))
+    print(f"[slice2] card vs CPU bf16, stage by stage (mean relative drift): SFD heads "
+          f"on raw frame 0, worst head {sfd16:.4f} (limit {BF16_SFD}); FAN heatmaps on "
+          f"crops 0-1 {fan16:.4f} (limit {BF16_FAN}), max |diff| {fan16_max:.4f} of "
+          f"max|heatmap| (limit {BF16_FAN_MAX}); DECA coefficients from the same aligned "
+          f"224s {deca16:.4f} (limit {BF16_DECA2}); {time.perf_counter() - t0:.1f} s")
+    need(sfd16 < BF16_SFD and fan16 < BF16_FAN and fan16_max < BF16_FAN_MAX
+         and deca16 < BF16_DECA2, "the card's bf16 slice 2 disagrees with the CPU's")
+
+
+def phase_breakdown2(g, a, deca, sfd, fan, spec, trunc, src, fr):
+    """Where one request of 16 raw frames spends the card's time, by stage
+    (CUDA events, extra peak memory) and by kernel class (torch.profiler)."""
+    from stylegan_directions_face_reenactment_tpu_torch.geometry import make_shift_vector
+    from stylegan_directions_face_reenactment_tpu_torch.models.deca import calculate_shapemodel
+    from stylegan_directions_face_reenactment_tpu_torch.models.direction_matrix import (
+        direction_matrix_forward)
+    from stylegan_directions_face_reenactment_tpu_torch.models.face import (
+        box_to_center_scale, crop_faces, detect_faces, fan_forward, ffhq_crop_device,
+        heatmaps_to_landmarks, landmarks_to_image_coords, select_reference_face)
+    from stylegan_directions_face_reenactment_tpu_torch.pipeline import (
+        generate_image, make_fan_align, make_fused_reenact_fn)
+    code, ps, angs = src
+    t = fr.shape[0]
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype)[6:]
+        align = None if dtype == torch.float32 else dtype
+        with torch.inference_mode():
+            imgs = fr.float()
+            det_in = imgs if align is None else imgs.to(align)
+            boxes, valid = detect_faces(sfd, det_in, subtract_mean=False)
+            center, scale = box_to_center_scale(select_reference_face(boxes.float(), valid)[0])
+            crops01 = crop_faces(imgs, center, scale, 256) / 255.0
+            fan_in = crops01 if align is None else crops01.to(align)
+            hm = fan_forward(fan, fan_in)[-1].float()
+            pts = landmarks_to_image_coords(heatmaps_to_landmarks(hm), center, scale)
+            crops, _ = ffhq_crop_device(imgs, pts, 256)
+            crops_gan = crops / 127.5 - 1.0
+            aligner = make_fan_align(fan, sfd, compute_dtype=align, return_ok=True)
+            aligned, ok = aligner((crops_gan + 1.0) / 2.00001)
+            p_t, a_t = calculate_shapemodel(deca, crops_gan, align_fn=lambda _: (aligned, ok),
+                                            compute_dtype=align)
+            ps_t = {k: v.expand((t,) + tuple(v.shape[1:])) for k, v in ps.items()}
+            shift = direction_matrix_forward(
+                a, make_shift_vector(spec, ps_t, p_t, angs.expand(t, 3), a_t))
+            codes = code.expand((t,) + tuple(code.shape[1:]))
+            stages = {
+                "SFD on the raw frames (562x1000)":
+                    lambda: detect_faces(sfd, det_in, subtract_mean=False),
+                "FAN on the 256 crops (preprocessing pass, 56 K3 calls)":
+                    lambda: fan_forward(fan, fan_in),
+                "FFHQ crop (device resample)": lambda: ffhq_crop_device(imgs, pts, 256),
+                "SFD + FAN alignment on the crops (56 K3 calls, kpt68 warp)":
+                    lambda: aligner((crops_gan + 1.0) / 2.00001),
+                "DECA encode (ResNet-50 on the aligned 224)":
+                    lambda: calculate_shapemodel(deca, crops_gan,
+                                                 align_fn=lambda _: (aligned, ok),
+                                                 compute_dtype=align),
+                "synthesis (shift, truncation, StyleGAN2-256)":
+                    lambda: generate_image(g, codes, truncation=0.7,
+                                           truncation_latent=trunc, shift_code=shift,
+                                           input_is_latent=True, compute_dtype=dtype),
+            }
+            for name, fn in stages.items():
+                stage_ms(tag, f"[slice2] {name}", fn, t, reps=3)
+        fused = make_fused_reenact_fn(g, a, deca, spec, sfd, fan, truncation=0.7,
+                                      truncation_latent=trunc, compute_dtype=dtype,
+                                      fan_params=fan, s3fd_params=sfd, outputs="reenact")
+        profile_request(tag, f"[slice2] one request of {t} raw frames",
+                        lambda: fused(code, ps, angs, fr))
 
 
 def main():
@@ -503,10 +953,15 @@ def main():
     worst = phase_parity()
     timing = phase_timing(name)
     results, launches = phase_slice()
-    for tag, r in results.items():
-        print(f"[result] {tag}: {r['fps']:.2f} frames/s (median of {r['rounds']} rounds, "
-              f"{r['fps_min']:.2f}-{r['fps_max']:.2f}), peak {r['peak_bytes']} bytes "
-              f"on {smi}")
+    results2, launches2 = phase_slice2()
+    for label, res in (("slice 1, resize path", results),
+                       ("slice 2, default path, 562x1000 raw frames", results2)):
+        for tag, r in res.items():
+            print(f"[result] {label}, {tag}: {r['fps']:.2f} frames/s (median of "
+                  f"{r['rounds']} rounds, {r['fps_min']:.2f}-{r['fps_max']:.2f}), peak "
+                  f"{r['peak_bytes']} bytes on {smi}")
+    launches = [launches[0] + launches2[0], launches[1] + launches2[1], launches2[2]]
+    need(all(n > 0 for n in launches), f"a kernel of the main paths never launched: {launches}")
 
     kernels = []
     for name_k, route, source, replaces, n in (
@@ -515,7 +970,10 @@ def main():
              launches[0]),
             ("fused_bias_act", "cuda", f"{PORT}/csrc/fused_bias_act.cu",
              "stylegan_directions_face_reenactment_tpu/ops/fused_act.py:92",
-             launches[1])):
+             launches[1]),
+            ("fused_conv_block", "cuda", f"{PORT}/csrc/fused_conv_block.cu",
+             "stylegan_directions_face_reenactment_tpu/ops/fused_conv_block.py:146",
+             launches[2])):
         t = timing[(name_k, "float32")]
         kernels.append({
             "name": name_k, "route": route, "source": source, "replaces": replaces,

@@ -96,24 +96,36 @@ def calculate_shapemodel(deca: DECA, images: torch.Tensor,
     """GAN-range ([-1, 1]) or [0, 255] NHWC images → coefficient dict
     {pose, alpha_shp, alpha_exp, cam} + angles (B, 3) in degrees.
 
-    DECA consumes [0, 1] at ``image_size``; here the images are brought
-    there by a bilinear resize (the ``--deca_alignment resize`` path).
-    ``compute_dtype`` runs the ResNet-50 trunk in that dtype; the
-    coefficients come back float32.
+    DECA consumes [0, 1] at ``image_size``. ``align_fn`` maps the [0, 1]
+    images to aligned 224 crops (``pipeline/alignment.py::make_fan_align``,
+    the reference's FAN bbox → warp); when it also returns an ``ok`` mask,
+    the frames it flags keep zero coefficients and −180° angles, the
+    reference's failed-detection sentinel (``estimate_DECA.py:33-51``).
+    Without it the images are resized bilinearly (``--deca_alignment
+    resize``). ``compute_dtype`` runs the ResNet-50 trunk in that dtype;
+    the coefficients come back float32.
     """
-    if align_fn is not None:
-        raise NotImplementedError(
-            "DECA face alignment (align_fn) comes with the SFD/FAN alignment "
-            "slice; this port runs the resize alignment only")
     if image_space == "gan":
         # the reference's torch_range_1_to_255 (with its /(2+1e-5)), then /255
         images = (torch.clamp(images, -1.0, 1.0) + 1.0) / 2.00001
     elif image_space == "255":
         images = images / 255.0
-    x = _nchw(images)
-    if x.shape[2] != image_size or x.shape[3] != image_size:
-        x = resize_bilinear(x, (image_size, image_size))
+    ok = None
+    if align_fn is not None:
+        aligned = align_fn(images)
+        if isinstance(aligned, tuple):
+            aligned, ok = aligned
+        x = _nchw(aligned)
+    else:
+        x = _nchw(images)
+        if x.shape[2] != image_size or x.shape[3] != image_size:
+            x = resize_bilinear(x, (image_size, image_size))
     if compute_dtype is not None:
         x = x.to(compute_dtype)
     p, shp, exp, angles, cam = _params_nchw(deca, x)
+    if ok is not None:
+        m = ok[:, None]
+        zero = torch.zeros((), dtype=torch.float32, device=m.device)
+        p, shp, exp, cam = (torch.where(m, t, zero) for t in (p, shp, exp, cam))
+        angles = torch.where(m, angles, torch.full_like(angles, -180.0))
     return {"pose": p, "alpha_shp": shp, "alpha_exp": exp, "cam": cam}, angles

@@ -1,14 +1,20 @@
 """Shared NN primitives for the frozen nets (NCHW, inference mode).
 
-Only what the serving slice calls: the DECA ResNet-50 and its MLP head, and
-the resize that stands in for the face-alignment warp. Batch norm is
-inference-mode, folded at call time. Conv weights are OIHW; linear weights
-(out, in). Weights are cast to the input's dtype at use, so a bf16 input
-runs the net in bf16.
+What the serving path calls: the DECA ResNet-50 and its MLP head, the
+S3FD and FAN face nets, and the separable warps of the face alignment.
+Batch norm is inference-mode, folded at call time. Conv weights are OIHW;
+linear weights (out, in). Weights are cast to the input's dtype at use, so
+a bf16 input runs the net in bf16.
+
+The warps (:func:`warp_from_coords`, :func:`scale_translate_warp`) take
+NHWC images like the JAX package's, since they resample whole frames of 3
+channels: two dense f32 contractions, with TF32 off for them whatever the
+global setting (the JAX package asks for f32 precision there too).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import torch
@@ -29,13 +35,21 @@ def linear(x: torch.Tensor, w: torch.Tensor,
     return F.linear(x, w.to(x.dtype), None if b is None else b.to(x.dtype))
 
 
-def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d, eps: float = 1e-5) -> torch.Tensor:
-    """Inference batch norm on dim 1 from ``bn``'s weight, bias and running
-    statistics, folded to one scale and one shift in float32."""
+def fold_bn(bn: nn.BatchNorm2d, dtype: torch.dtype,
+            eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``bn``'s weight, bias and running statistics folded in float32 to one
+    scale and one shift per channel, each rounded to ``dtype``."""
     inv = torch.rsqrt(bn.running_var.float() + eps) * bn.weight.float()
     shift = bn.bias.float() - bn.running_mean.float() * inv
+    return inv.to(dtype), shift.to(dtype)
+
+
+def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d, eps: float = 1e-5) -> torch.Tensor:
+    """Inference batch norm on dim 1: ``x * inv + shift`` in x's dtype with
+    the folds of :func:`fold_bn`."""
+    inv, shift = fold_bn(bn, x.dtype, eps)
     shape = (1, -1) + (1,) * (x.dim() - 2)
-    return x * inv.reshape(shape).to(x.dtype) + shift.reshape(shape).to(x.dtype)
+    return x * inv.reshape(shape) + shift.reshape(shape)
 
 
 def relu(x: torch.Tensor) -> torch.Tensor:
@@ -47,6 +61,21 @@ def max_pool2d(x: torch.Tensor, window: int, stride: Optional[int] = None,
     return F.max_pool2d(x, window, stride or window, padding)
 
 
+def avg_pool2d(x: torch.Tensor, window: int, stride: Optional[int] = None,
+               padding: int = 0) -> torch.Tensor:
+    """Average over the in-bounds elements of each window (padding is not
+    counted), as the JAX package's reduce-window pair does."""
+    return F.avg_pool2d(x, window, stride or window, padding,
+                        count_include_pad=False)
+
+
+def upsample_nearest(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """Repeat every pixel ``factor`` times along H and W (NCHW)."""
+    n, c, h, w = x.shape
+    x = x[:, :, :, None, :, None].expand(n, c, h, factor, w, factor)
+    return x.reshape(n, c, h * factor, w * factor)
+
+
 def adaptive_avg_pool2d(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     return F.adaptive_avg_pool2d(x, out_hw)
 
@@ -56,3 +85,53 @@ def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     antialiasing (the JAX package's ``jax.image.resize(..., antialias=False)``)."""
     return F.interpolate(x, size=tuple(out_hw), mode="bilinear",
                          align_corners=False, antialias=False)
+
+
+@contextlib.contextmanager
+def full_f32_matmul():
+    """float32 matrix products without TF32 inside the block (restored
+    after it)."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def tent_matrix(coords: torch.Tensor, size: int) -> torch.Tensor:
+    """Bilinear interpolation matrix W[b, i, j] = max(0, 1 - |coords[b, i] -
+    j|): row i samples source position coords[b, i] with zero padding (rows
+    of out-of-range positions are all zero)."""
+    j = torch.arange(size, dtype=torch.float32, device=coords.device)
+    return torch.clamp_min(1.0 - (coords[..., None] - j).abs(), 0.0)
+
+
+def warp_from_coords(images: torch.Tensor, src_y: torch.Tensor,
+                     src_x: torch.Tensor) -> torch.Tensor:
+    """Separable bilinear resample at per-sample axis coordinates (zero
+    padding outside the image) as two float32 contractions.
+
+    images: (B, H, W, C); src_y (B, oh), src_x (B, ow) in source pixels.
+    Returns (B, oh, ow, C) float32.
+    """
+    h, w = images.shape[1], images.shape[2]
+    wy = tent_matrix(src_y.float(), h)                     # (B, oh, H)
+    wx = tent_matrix(src_x.float(), w)                     # (B, ow, W)
+    with full_f32_matmul():
+        tmp = torch.einsum("bih,bhwc->biwc", wy, images.float())
+        return torch.einsum("bow,biwc->bioc", wx, tmp)
+
+
+def scale_translate_warp(images: torch.Tensor, s: torch.Tensor,
+                         tx: torch.Tensor, ty: torch.Tensor,
+                         out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Axis-aligned warp dst = s·src + t per sample, bilinear with zero
+    padding. images: (B, H, W, C); s, tx, ty: (B,)."""
+    oh, ow = out_hw
+    dev = images.device
+    dst_y = torch.arange(oh, dtype=torch.float32, device=dev)
+    dst_x = torch.arange(ow, dtype=torch.float32, device=dev)
+    src_y = (dst_y[None, :] - ty[:, None]) / s[:, None]   # (B, oh)
+    src_x = (dst_x[None, :] - tx[:, None]) / s[:, None]   # (B, ow)
+    return warp_from_coords(images, src_y, src_x)

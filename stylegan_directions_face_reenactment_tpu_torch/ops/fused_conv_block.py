@@ -1,0 +1,191 @@
+"""K3: the FAN dense-residual ConvBlock for channels-equal 256-channel blocks.
+
+    o1 = conv3x3(relu(x * i1 + f1))       256 → 128
+    o2 = conv3x3(relu(o1 * i2 + f2))      128 → 64
+    o3 = conv3x3(relu(o2 * i3 + f3))       64 → 64
+    out = concat(o1, o2, o3) + x
+
+on NCHW x (B, 256, H, W), float32 or bf16. The folds come from
+:func:`..models.nn.fold_bn` (f32, rounded to the activation dtype); sums
+are f32 and each stage's output is rounded to the activation dtype.
+
+Replaces the Pallas TPU kernel ``stylegan_directions_face_reenactment_tpu/
+ops/fused_conv_block.py::_forward`` (entered through ``fused_conv_block_256``
+and ``conv_block_fused``; gate ``fused_convblock_enabled``). On the serving
+path every hourglass block and ``top_m`` of FAN's 4 modules takes it: 14
+blocks a module, 56 a FAN pass, 112 a request of the fused default path
+(two FAN passes).
+
+Bound on an H100: operations, 811,008 FLOP a block-pixel against 2 KB of
+f32 activations (about 400 FLOP a byte). ``csrc/fused_conv_block.cu`` says
+what its design does about that.
+
+The gate: :func:`fused_convblock_enabled` takes every channels-equal
+256-channel block on a CUDA tensor, at every size from 64² down to 4², in
+both dtypes: the JAX gate's 16 MB VMEM budget and its 8×8 floor are limits
+of the TPU and do not carry over. CPU tensors take the plain version.
+
+* :func:`fused_conv_block_plain` is the plain PyTorch version (fold → ReLU
+  → ``F.conv2d`` three times, cat, + x); :func:`fused_conv_block` takes it
+  only for CPU tensors.
+* :func:`fused_conv_block_cuda` launches the kernel and counts its launches
+  in ``fused_conv_block_cuda.launches`` (one a block; the kernel runs as
+  three stage launches).
+* The kernel is forward only and serves under no-grad: on a CUDA tensor
+  that needs a gradient :func:`fused_conv_block` raises. The JAX package's
+  custom VJP recomputes through the plain composition; that wrapper comes
+  with the training path.
+"""
+
+from __future__ import annotations
+
+import weakref
+from typing import NamedTuple, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .kernel_build import check, load_library
+
+CHANNELS = 256
+_ENTRY = {torch.float32: "fused_conv_block_f32", torch.bfloat16: "fused_conv_block_bf16"}
+
+Tensors3 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+class K3Args(NamedTuple):
+    """A block's folds and weights in the activation dtype: ``w`` OIHW (the
+    plain version's), ``wk`` the kernel's packing (:func:`kernel_weight`)."""
+    inv: Tensors3
+    off: Tensors3
+    w: Tensors3
+    wk: Tensors3
+
+
+def fused_convblock_enabled(p, x: torch.Tensor) -> bool:
+    """Whether ConvBlock ``p`` takes the kernel for ``x``: a channels-equal
+    256-channel block (no downsample) on an NCHW CUDA tensor."""
+    return (x.is_cuda and getattr(p, "downsample", None) is None and x.dim() == 4
+            and x.shape[1] == CHANNELS)
+
+
+def kernel_weight(w: torch.Tensor) -> torch.Tensor:
+    """An OIHW 3×3 weight in the kernel's layout: float32 (cin, 3, 3, cout),
+    output channels innermost for the CUDA-core stage; bf16 (cin / 16, 9,
+    cout, 16), the tensor-core stage's 16-channel chunks, each a row of 16
+    input channels per output channel and tap."""
+    if w.dtype == torch.bfloat16:
+        cout, cin = w.shape[:2]
+        return w.reshape(cout, cin // 16, 16, 9).permute(1, 3, 0, 2).contiguous()
+    return w.permute(1, 2, 3, 0).contiguous()
+
+
+def _kernel_weight_shape(cin: int, cout: int, dtype: torch.dtype) -> Tuple[int, ...]:
+    return (cin // 16, 9, cout, 16) if dtype == torch.bfloat16 else (cin, 3, 3, cout)
+
+
+def make_k3_args(inv, off, w, dtype: torch.dtype) -> K3Args:
+    """K3Args from three folds each of (inv, off) and three OIHW weights."""
+    w = tuple(t.to(dtype) for t in w)
+    return K3Args(tuple(t.to(dtype) for t in inv), tuple(t.to(dtype) for t in off),
+                  w, tuple(kernel_weight(t) for t in w))
+
+
+_cache: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def block_args(p, dtype: torch.dtype) -> K3Args:
+    """ConvBlock ``p``'s K3Args in ``dtype``. Under no-grad they are kept
+    beside ``p`` and rebuilt when a weight or statistic changes (its storage
+    or version); with grad on they are built anew, so gradients reach the
+    parameters."""
+    from ..models.nn import fold_bn
+    tensors = list(p.parameters()) + list(p.buffers())
+
+    def build():
+        folds = [fold_bn(bn, dtype) for bn in (p.bn1, p.bn2, p.bn3)]
+        return make_k3_args([f[0] for f in folds], [f[1] for f in folds],
+                            [p.conv1.weight, p.conv2.weight, p.conv3.weight], dtype)
+
+    if torch.is_grad_enabled() or any(t.is_inference() for t in tensors):
+        return build()
+    key = (dtype, tensors[0].device,
+           tuple((t.data_ptr(), t._version) for t in tensors))
+    entry = _cache.get(p)
+    if entry is None or entry[0] != key:
+        entry = (key, build())
+        _cache[p] = entry
+    return entry[1]
+
+
+def fused_conv_block_plain(x: torch.Tensor, args: K3Args) -> torch.Tensor:
+    """Plain version: the same arithmetic as three PyTorch stages."""
+    outs, h = [], x
+    for inv, off, w in zip(args.inv, args.off, args.w):
+        act = torch.clamp_min(h * inv.view(1, -1, 1, 1) + off.view(1, -1, 1, 1), 0)
+        h = F.conv2d(act, w, padding=1)
+        outs.append(h)
+    return torch.cat(outs, dim=1) + x
+
+
+def _check(x: torch.Tensor, args: K3Args) -> None:
+    if not x.is_cuda:
+        raise ValueError("fused_conv_block_cuda takes a CUDA tensor")
+    if x.dtype not in _ENTRY:
+        raise TypeError(f"fused_conv_block_cuda takes float32 or bfloat16, got {x.dtype}")
+    if x.dim() != 4 or x.shape[1] != CHANNELS or x.numel() == 0:
+        raise ValueError(f"fused_conv_block_cuda takes a non-empty (B, {CHANNELS}, H, W) "
+                         f"tensor, got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError("fused_conv_block_cuda takes a contiguous NCHW tensor")
+    cin = (256, 128, 64)
+    cout = (128, 64, 64)
+    for k in range(3):
+        for t, shape in ((args.inv[k], (cin[k],)), (args.off[k], (cin[k],)),
+                         (args.wk[k], _kernel_weight_shape(cin[k], cout[k], x.dtype))):
+            if tuple(t.shape) != shape or t.dtype != x.dtype or t.device != x.device \
+                    or not t.is_contiguous():
+                raise ValueError(f"stage {k + 1}: expected a contiguous {shape} {x.dtype} "
+                                 f"tensor on {x.device}, got {tuple(t.shape)} {t.dtype} "
+                                 f"on {t.device}")
+
+
+def fused_conv_block_cuda(x: torch.Tensor, args: K3Args) -> torch.Tensor:
+    """Launch K3 on a contiguous (B, 256, H, W) CUDA tensor (f32 or bf16)."""
+    _check(x, args)
+    b, _, h, w = x.shape
+    out = torch.empty_like(x)
+    scratch = torch.empty((b, 64, h, w), dtype=x.dtype, device=x.device)
+    ptrs = []
+    for k in range(3):
+        ptrs += [args.inv[k].data_ptr(), args.off[k].data_ptr(), args.wk[k].data_ptr()]
+    fn = getattr(load_library(), _ENTRY[x.dtype])
+    status = fn(x.data_ptr(), *ptrs, out.data_ptr(), scratch.data_ptr(), b, h, w,
+                torch.cuda.current_stream(x.device).cuda_stream)
+    check(status, "fused_conv_block_cuda")
+    fused_conv_block_cuda.launches += 1
+    return out
+
+
+fused_conv_block_cuda.launches = 0
+
+
+def fused_conv_block(x: torch.Tensor, args: K3Args) -> torch.Tensor:
+    """The block: the kernel for a CUDA tensor, the plain version for a CPU
+    tensor."""
+    if x.is_cuda:
+        if torch.is_grad_enabled() and (x.requires_grad or any(
+                t.requires_grad for t in args.inv + args.off + args.w)):
+            raise NotImplementedError(
+                "the fused conv block CUDA kernel is forward only; its backward "
+                "(a recompute through the plain version) comes with the training path")
+        return fused_conv_block_cuda(x.contiguous(), args)
+    if x.device.type != "cpu":
+        raise ValueError(f"fused_conv_block runs on cuda or cpu, not {x.device}")
+    return fused_conv_block_plain(x, args)
+
+
+def conv_block_fused(p, x: torch.Tensor) -> torch.Tensor:
+    """Drop-in for ``models/face/fan.py::conv_block`` on a channels-equal
+    256-channel ConvBlock ``p``."""
+    return fused_conv_block(x, block_args(p, x.dtype))

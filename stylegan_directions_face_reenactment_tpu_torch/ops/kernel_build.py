@@ -25,7 +25,7 @@ from typing import Dict, List
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
-SOURCES = ("upfirdn2d.cu", "fused_bias_act.cu")
+SOURCES = ("upfirdn2d.cu", "fused_bias_act.cu", "fused_conv_block.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -39,6 +39,8 @@ SIGNATURES = {
     "upfirdn2d_bf16": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     "fused_bias_act_f32": (_P, _P, _P, _I64, _I, _I64, _F, _F, _P),
     "fused_bias_act_bf16": (_P, _P, _P, _I64, _I, _I64, _F, _F, _P),
+    "fused_conv_block_f32": (_P,) * 12 + (_I, _I, _I, _P),
+    "fused_conv_block_bf16": (_P,) * 12 + (_I, _I, _I, _P),
 }
 
 

@@ -42,3 +42,18 @@ def fused_bias_act_calls(size: int = 256, channel_multiplier: int = 1,
         r = 2 ** i
         calls += [(batch, channels[r], r, r)] * 2
     return calls
+
+
+FAN_MODULES = 4
+# the channels-equal 256-channel blocks of one FAN module: hourglass level 4
+# b1 and top_m at 64², then b1/b2/b3 of levels 3..1 with b2_plus at 4² —
+# three blocks at each of 32², 16², 8² and 4² (b2 of level 4 runs at 32²)
+_K3_SIZES = (64, 64, 32, 32, 32, 16, 16, 16, 8, 8, 8, 4, 4, 4)
+
+
+def fused_conv_block_calls(batch: int = 16,
+                           num_modules: int = FAN_MODULES) -> List[Tuple[int, ...]]:
+    """The K3 input shapes (NCHW) of one FAN pass over ``batch`` crops: 14
+    blocks a module. The default per-frame path runs two passes a request
+    (preprocessing and the DECA alignment)."""
+    return [(batch, 256, s, s) for s in _K3_SIZES] * num_modules

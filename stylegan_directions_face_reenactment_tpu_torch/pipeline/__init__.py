@@ -1,5 +1,12 @@
-from .reenactment import make_reenact_fn, reenact_batch
+from .alignment import (kpt68_center_size, landmark_align, make_fan_align,
+                        warp_to_224)
+from .preprocess import preprocess_batch_device, to_gan_range
+from .reenactment import (align_for, make_fused_reenact_fn, make_reenact_fn,
+                          reenact_batch, reenact_raw_batch, source_shape)
 from .synthesis import generate_image, get_shifted_latent_code
 
-__all__ = ["make_reenact_fn", "reenact_batch",
+__all__ = ["kpt68_center_size", "landmark_align", "make_fan_align",
+           "warp_to_224", "preprocess_batch_device", "to_gan_range",
+           "align_for", "make_fused_reenact_fn", "make_reenact_fn",
+           "reenact_batch", "reenact_raw_batch", "source_shape",
            "generate_image", "get_shifted_latent_code"]

@@ -1,0 +1,38 @@
+"""Preprocessing on the card: SFD → FAN landmarks → FFHQ crop → [-1, 1].
+
+Counterpart of the device half of the JAX package's
+``pipeline/preprocess.py`` (the reference's ``utils_inference.py:61-82``).
+Frames arrive already at the detection width (the reference rescales every
+frame to width 1000 first); that host resize and the host crop of
+out-of-frame boxes are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..models.face.cropping import ffhq_crop_device
+from ..models.face.fan import FAN
+from ..models.face.landmarks import estimate_landmarks
+from ..models.face.s3fd import S3FD
+
+
+def to_gan_range(image_uint8: np.ndarray) -> np.ndarray:
+    """HWC uint8 → HWC float32 in [-1, 1] (ToTensor → Normalize(.5, .5, .5),
+    ``dataloader.py:31-34``)."""
+    return image_uint8.astype(np.float32) / 127.5 - 1.0
+
+
+def preprocess_batch_device(s3fd: S3FD, fan: FAN, frames: torch.Tensor,
+                            image_size: int = 256,
+                            compute_dtype: Optional[torch.dtype] = None):
+    """frames (B, H, W, 3) uint8 or float RGB on the device → (crops
+    (B, s, s, 3) float32 in [-1, 1], ok (B,) detection mask, in_frame (B,),
+    landmarks (B, 68, 2) in frame coordinates)."""
+    imgs = frames.float()
+    pts, ok, _ = estimate_landmarks(s3fd, fan, imgs, compute_dtype=compute_dtype)
+    crops, in_frame = ffhq_crop_device(imgs, pts, image_size=image_size)
+    return crops / 127.5 - 1.0, ok, in_frame, pts

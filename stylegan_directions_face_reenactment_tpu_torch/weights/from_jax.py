@@ -12,6 +12,9 @@ JAX. Layout changes at the boundary:
   * batch norm {scale, offset, mean, var} → {weight, bias, running_mean,
     running_var}; linear (out, in) unchanged.
 
+The last FAN module's ``bl``/``al``, which the JAX package zero-fills to
+share one scan body, have no counterpart in the port and are not read.
+
 The ``init_*`` functions give each module a seeded random init drawn from
 the same distributions as the JAX package's ``init_*`` (not the same
 numbers: the generators differ). Both build on the CPU and then move the
@@ -29,6 +32,8 @@ import torch.nn as nn
 
 from ..models.deca.deca import DECA
 from ..models.direction_matrix import DirectionMatrix
+from ..models.face.fan import FAN
+from ..models.face.s3fd import HEADS, NORMS, S3FD, TRUNK
 from ..models.stylegan2 import (ConstantInput, EqualLinear, Generator,
                                 ModulatedConv2d, NoiseBuffers)
 from ..utils.device import DeviceLike, resolve_device
@@ -138,6 +143,58 @@ def deca_from_jax(params: Params, device: DeviceLike = None) -> DECA:
     return deca.to(resolve_device(device))
 
 
+def s3fd_from_jax(params: Params, device: DeviceLike = None) -> S3FD:
+    """The JAX S3FD pytree (``convert_s3fd``'s layout) → :class:`S3FD`."""
+    a: Dict[str, np.ndarray] = {}
+    for name in [t[0] for t in TRUNK] + [h[0] for h in HEADS]:
+        a[f"{name}.weight"] = _np(params[name]["weight"], (3, 2, 0, 1))
+        a[f"{name}.bias"] = _np(params[name]["bias"])
+    for name, _, _ in NORMS:
+        a[f"{name}.weight"] = _np(params[name])
+    m = S3FD()
+    _load(m, a)
+    return m.to(resolve_device(device))
+
+
+def _fan_block(a, prefix, p):
+    for i in (1, 2, 3):
+        _bn(a, f"{prefix}.bn{i}", p[f"bn{i}"])
+        a[f"{prefix}.conv{i}.weight"] = _np(p[f"conv{i}"], (3, 2, 0, 1))
+    if "downsample" in p:
+        _bn(a, f"{prefix}.downsample.0", p["downsample"]["bn"])
+        a[f"{prefix}.downsample.2.weight"] = _np(p["downsample"]["conv"], (3, 2, 0, 1))
+
+
+def _conv_bias(a, prefix, p):
+    a[f"{prefix}.weight"] = _np(p["weight"], (3, 2, 0, 1))
+    a[f"{prefix}.bias"] = _np(p["bias"])
+
+
+def fan_from_jax(params: Params, device: DeviceLike = None) -> FAN:
+    """The JAX FAN pytree (``convert_fan``'s or ``init_fan``'s layout) →
+    :class:`FAN`."""
+    n = len(params["modules"])
+    a: Dict[str, np.ndarray] = {}
+    _conv_bias(a, "conv1", params["conv1"])
+    _bn(a, "bn1", params["bn1"])
+    for name in ("conv2", "conv3", "conv4"):
+        _fan_block(a, name, params[name])
+    for m, mod in enumerate(params["modules"]):
+        for level, entry in mod["hg"]["levels"].items():
+            for name, blk in entry.items():
+                _fan_block(a, f"m{m}.{name}_{level}", blk)
+        _fan_block(a, f"top_m_{m}", mod["top_m"])
+        _conv_bias(a, f"conv_last{m}", mod["conv_last"])
+        _bn(a, f"bn_end{m}", mod["bn_end"])
+        _conv_bias(a, f"l{m}", mod["l"])
+        if m < n - 1:
+            _conv_bias(a, f"bl{m}", mod["bl"])
+            _conv_bias(a, f"al{m}", mod["al"])
+    fan = FAN(n)
+    _load(fan, a)
+    return fan.to(resolve_device(device))
+
+
 # ---------------------------------------------------------------------------
 # Seeded random init
 # ---------------------------------------------------------------------------
@@ -195,3 +252,35 @@ def init_deca(seed: int = 0, device: DeviceLike = None) -> DECA:
                 m.weight.copy_((torch.rand(m.weight.shape, generator=rng) * 2 - 1) * lim)
                 m.bias.zero_()
     return deca.to(dev)
+
+
+def init_s3fd(seed: int = 0, device: DeviceLike = None) -> S3FD:
+    """Convs U(±1/sqrt(in·kh·kw)) with zero biases; L2Norm scales 10, 8, 5."""
+    dev = resolve_device(device)
+    rng = torch.Generator().manual_seed(seed)
+    m = S3FD()
+    with torch.no_grad():
+        for conv in m.modules():
+            if isinstance(conv, nn.Conv2d):
+                _, cin, kh, kw = conv.weight.shape
+                lim = 1.0 / math.sqrt(cin * kh * kw)
+                conv.weight.copy_((torch.rand(conv.weight.shape, generator=rng) * 2 - 1) * lim)
+                conv.bias.zero_()
+    return m.to(dev)
+
+
+def init_fan(seed: int = 0, num_modules: int = 4, device: DeviceLike = None) -> FAN:
+    """Convs N(0, sqrt(2 / (kh·kw·out))) with zero biases, batch norm at
+    identity statistics (the JAX package's ``init_fan``)."""
+    dev = resolve_device(device)
+    rng = torch.Generator().manual_seed(seed)
+    fan = FAN(num_modules)
+    with torch.no_grad():
+        for m in fan.modules():
+            if isinstance(m, nn.Conv2d):
+                cout, _, kh, kw = m.weight.shape
+                m.weight.copy_(torch.randn(m.weight.shape, generator=rng)
+                               * math.sqrt(2.0 / (kh * kw * cout)))
+                if m.bias is not None:
+                    m.bias.zero_()
+    return fan.to(dev)

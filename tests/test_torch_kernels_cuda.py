@@ -1,6 +1,7 @@
 """The port's hand-written CUDA kernels against their plain PyTorch
 versions on the card, at the serving path's shapes (voxceleb-256, channel
-multiplier 1, a batch of 16), in float32 and bf16.
+multiplier 1, a batch of 16; K3 at the 2DFAN4 hourglass shapes of a batch
+of 16 and of 1), in float32 and bf16.
 
 These need a CUDA card and nvcc; they are marked ``cuda`` and skip
 elsewhere (the fixture decides, so every worker collects the same tests).
@@ -12,17 +13,19 @@ Run them on the card with:
 the port need not have JAX.)
 
 Tolerances: float32 atol 1e-5 (the sums run in another order than
-cuDNN's); bf16 1e-2 relative to max(1, max|plain|) (one bf16 rounding,
-2^-8, on either side).
+cuDNN's); K3 in float32 1e-5·max(1, max|plain|) (sums of up to 2304
+products in another order); bf16 1e-2 relative to max(1, max|plain|) (one
+bf16 rounding, 2^-8, on either side).
 """
 
 import pytest
 import torch
 
+from stylegan_directions_face_reenactment_tpu_torch.ops import fused_conv_block as k3
 from stylegan_directions_face_reenactment_tpu_torch.ops.fused_act import (
     fused_bias_act_cuda, fused_leaky_relu, fused_leaky_relu_plain)
 from stylegan_directions_face_reenactment_tpu_torch.ops.main_path import (
-    fused_bias_act_calls, upfirdn2d_calls)
+    fused_bias_act_calls, fused_conv_block_calls, upfirdn2d_calls)
 from stylegan_directions_face_reenactment_tpu_torch.ops.upfirdn2d import (
     make_kernel, upfirdn2d)
 from stylegan_directions_face_reenactment_tpu_torch.ops.upfirdn2d_kernel import (
@@ -41,11 +44,12 @@ def card():
     return torch.device("cuda")
 
 
-def check(got, want):
+def check(got, want, f32_scaled=False):
     assert got.shape == want.shape and got.dtype == want.dtype
     err = float((got.float() - want.float()).abs().max())
     if got.dtype == torch.float32:
-        assert err <= 1e-5, err
+        scale = max(1.0, float(want.abs().max())) if f32_scaled else 1.0
+        assert err <= 1e-5 * scale, err
     else:
         assert err <= 1e-2 * max(1.0, float(want.float().abs().max())), err
 
@@ -100,3 +104,71 @@ def test_kernels_refuse_what_they_do_not_take(card):
     with pytest.raises(NotImplementedError):
         y = upfirdn2d_fir(x.requires_grad_(), k, 2, (2, 1))
         y.sum().backward()
+
+
+K3_SHAPES = sorted(set(fused_conv_block_calls(16)) | set(fused_conv_block_calls(1)),
+                   key=lambda s: (s[0], s[2]))
+
+
+def _k3_args(card, dtype, seed=2):
+    g = torch.Generator(device=card).manual_seed(seed)
+    cs = ((256, 128), (128, 64), (64, 64))
+    inv = [1 + 0.1 * torch.randn(ci, generator=g, device=card) for ci, _ in cs]
+    off = [0.1 * torch.randn(ci, generator=g, device=card) for ci, _ in cs]
+    w = [torch.randn(co, ci, 3, 3, generator=g, device=card) * (2.0 / (9 * co)) ** 0.5
+         for ci, co in cs]
+    return k3.make_k3_args(inv, off, w, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", K3_SHAPES, ids=str)
+def test_fused_conv_block_kernel_matches_plain(card, shape, dtype):
+    args = _k3_args(card, dtype)
+    x = torch.randn(shape, generator=torch.Generator(device=card).manual_seed(3),
+                    device=card).to(dtype)
+    before = k3.fused_conv_block_cuda.launches
+    got = k3.fused_conv_block(x, args)
+    assert k3.fused_conv_block_cuda.launches == before + 1
+    check(got, k3.fused_conv_block_plain(x, args), f32_scaled=True)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(2, 256, 5, 7), (1, 256, 9, 33), (3, 256, 1, 1)], ids=str)
+def test_fused_conv_block_kernel_partial_tiles(card, shape, dtype):
+    """Sizes that leave the 8×16 pixel tiles partly empty, with the halo and
+    the residual epilogue at their edges."""
+    args = _k3_args(card, dtype, seed=4)
+    x = torch.randn(shape, generator=torch.Generator(device=card).manual_seed(5),
+                    device=card).to(dtype)
+    check(k3.fused_conv_block_cuda(x, args), k3.fused_conv_block_plain(x, args),
+          f32_scaled=True)
+
+
+def test_fused_conv_block_refuses_grad(card):
+    """The kernel is forward only: a CUDA input or weight that needs a
+    gradient raises instead of giving an output cut off from the graph."""
+    args = _k3_args(card, torch.float32)
+    x = torch.randn(2, 256, 8, 8, device=card)
+    with pytest.raises(NotImplementedError):
+        k3.fused_conv_block(x.clone().requires_grad_(), args)
+    w0 = args.w[0].clone().requires_grad_()
+    with pytest.raises(NotImplementedError):
+        k3.fused_conv_block(x, args._replace(w=(w0,) + args.w[1:]))
+    with torch.no_grad():
+        k3.fused_conv_block(x.clone().requires_grad_(), args)
+
+
+def test_fused_conv_block_refusals(card):
+    args = _k3_args(card, torch.float32)
+    x = torch.randn(1, 256, 8, 8, device=card)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        k3.fused_conv_block_cuda(x.cpu(), args)
+    with pytest.raises(ValueError, match="256"):
+        k3.fused_conv_block_cuda(torch.randn(1, 128, 8, 8, device=card), args)
+    with pytest.raises(ValueError, match="contiguous"):
+        k3.fused_conv_block_cuda(x.transpose(2, 3), args)
+    with pytest.raises(TypeError):
+        k3.fused_conv_block_cuda(x.half(), args)
+    with pytest.raises(ValueError, match="stage 1"):
+        k3.fused_conv_block_cuda(x.bfloat16(), args)
