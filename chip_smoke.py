@@ -33,11 +33,24 @@ non-zero without printing the last line:
    12/13/112 a request; frames 0-1 of the first request checked stage by
    stage against the CPU (float32, and bf16 against the CPU's bf16 on the
    same inputs); one request each through the reuse-landmarks
-   paths; a breakdown by stage and by kernel class.
+   paths; a breakdown by stage and by kernel class;
+7. slice 3, source set-up: the same nets plus a seeded e4e (IR-SE50 at 256,
+   14 styles) and LPIPS/AlexNet, all float32; one 256² source face made by
+   the generator goes through ``setup_source`` (e4e inversion, 200 PTI
+   steps of 100·MSE + LPIPS over ``convs[4..11]``, the source's SFD → FAN
+   DECA coefficients), with the launches a PTI step of K1 and K2 forward
+   and of their backwards (K1 with down = 2 for the skip upsamples), the
+   loss history, the caller's generator untouched and only ``convs[4..11]``
+   tuned; the e4e code, the first PTI step's loss and gradients and the
+   losses of 3 steps against the CPU; e4e, PTI-step, source-DECA and
+   set-up times and peak memory; one request of 16 raw frames served from
+   the tuned generator. The backward kernels join phases 3 and 4 at the
+   shapes of one PTI step (``ops/main_path.py::pti_backward_calls``).
 
 The last two lines are the kernels' numbers and ``{"ok": true, ...}``.
 """
 
+import copy
 import json
 import statistics
 import subprocess
@@ -45,6 +58,7 @@ import sys
 import time
 from collections import Counter
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -81,6 +95,14 @@ BF16_DRIFT, BF16_DECA, BF16_SYNTH = 0.1, 0.009, 0.012
 # read on an H100: SFD's worst head 0.0114, FAN heatmaps 0.0123 (max |diff|
 # 0.0179 of max|heatmap|), DECA coefficients 0.0039. Limits about twice.
 BF16_SFD, BF16_FAN, BF16_FAN_MAX, BF16_DECA2 = 0.025, 0.025, 0.04, 0.009
+PTI_STEPS, PTI_LR = 200, 3e-3           # setup_source's defaults, the CLI's
+PTI_RUNS, PTI_RUN_STEPS = 5, 20         # the timed PTI runs
+CPU_PTI_STEPS = 3                       # the PTI steps held against the CPU
+# each IR-SE block's last batch-norm scale in the seeded e4e: at the random
+# init the 24 residual blocks grow the activations some 30,000-fold and turn
+# last-digit differences into percent differences of the code
+# (tests/test_torch_e4e.py); a trained encoder's branches are damped too
+E4E_BN2_SCALE = 0.3
 
 
 class SmokeFailure(Exception):
@@ -357,6 +379,138 @@ def phase_timing(card_name):
     return out
 
 
+def k1_bwd_inputs(dtype, gen):
+    """(call, gradient of its output) for each K1 backward of one PTI step."""
+    from stylegan_directions_face_reenactment_tpu_torch.ops.main_path import pti_backward_calls
+    from stylegan_directions_face_reenactment_tpu_torch.ops.upfirdn2d import (
+        upfirdn2d_output_shape)
+    out = []
+    for c in pti_backward_calls(SIZE, CM).upfirdn2d:
+        oh, ow = upfirdn2d_output_shape(c.shape[2], c.shape[3], (4, 4), up=c.up, pad=c.pad)
+        out.append((c, torch.randn(c.shape[:2] + (oh, ow), generator=gen,
+                                   device="cuda").to(dtype)))
+    return out
+
+
+def k2_bwd_inputs(dtype, gen):
+    """(shape, g, y) for each K2-bwd of one PTI step; y is an activation
+    output, negative on about half its elements."""
+    from stylegan_directions_face_reenactment_tpu_torch.ops.fused_act import (
+        fused_leaky_relu_plain)
+    from stylegan_directions_face_reenactment_tpu_torch.ops.main_path import pti_backward_calls
+    out = []
+    for s in pti_backward_calls(SIZE, CM).fused_bias_act:
+        g = torch.randn(s, generator=gen, device="cuda").to(dtype)
+        y = fused_leaky_relu_plain(torch.randn(s, generator=gen, device="cuda").to(dtype))
+        out.append((s, g, y))
+    return out
+
+
+def library_k1_bwd(g, k, call):
+    """One cuDNN depthwise ``conv2d`` computing K1's backward of ``call``:
+    the taps unflipped (the gradient flips the forward's flipped taps back),
+    pad 2 for the blur, stride 2 and pad 1 for the skip upsample."""
+    c = g.shape[1]
+    w = k.to(g)[None, None].expand(c, 1, -1, -1).contiguous()
+    stride, pad = (1, 2) if call.up == 1 else (2, 1)
+    return lambda: F.conv2d(g, w, stride=stride, padding=pad, groups=c)
+
+
+def phase_parity_bwd():
+    """The backward kernels against their plain versions at every shape of
+    one PTI step, float32 and bf16."""
+    from stylegan_directions_face_reenactment_tpu_torch.ops.fused_act import (
+        fused_bias_act_bwd_cuda, fused_leaky_relu_bwd_plain)
+    from stylegan_directions_face_reenactment_tpu_torch.ops.upfirdn2d import make_kernel
+    from stylegan_directions_face_reenactment_tpu_torch.ops.upfirdn2d_kernel import (
+        upfirdn2d_backward, upfirdn2d_bwd_cuda)
+    k = make_kernel((1, 3, 3, 1), gain=4)
+    worst = {"upfirdn2d_bwd": 0.0, "fused_bias_act_bwd": 0.0}
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for dtype in (torch.float32, torch.bfloat16):
+        for call, g in k1_bwd_inputs(dtype, gen):
+            got = upfirdn2d_bwd_cuda(g, k, call.up, call.pad, call.shape)
+            want = upfirdn2d_backward(g, k, call.up, call.pad, call.shape)
+            lib = library_k1_bwd(g, k, call)()
+            torch.cuda.synchronize()
+            err, lim = max_err(got, want), limit_for(want)
+            print(f"[parity] upfirdn2d_bwd {call.name} (down {call.up}) {tuple(g.shape)} -> "
+                  f"{tuple(want.shape)} {str(dtype)[6:]}: max abs err {err:.3g} (limit "
+                  f"{lim:.3g}); library call err {max_err(lib, want):.3g}")
+            need(tuple(got.shape) == tuple(call.shape) and err <= lim,
+                 f"upfirdn2d_bwd {call.name} {dtype} disagrees with its plain version")
+            if dtype == torch.float32:
+                need(max_err(lib, want) <= lim, f"library call for the backward of "
+                     f"{call.name} is not the same function")
+                worst["upfirdn2d_bwd"] = max(worst["upfirdn2d_bwd"], err)
+        for shape, g, y in k2_bwd_inputs(dtype, gen):
+            got = fused_bias_act_bwd_cuda(g, y)
+            want = fused_leaky_relu_bwd_plain(g, y)
+            torch.cuda.synchronize()
+            err, lim = max_err(got, want), limit_for(want)
+            print(f"[parity] fused_bias_act_bwd {shape} {str(dtype)[6:]}: max abs err "
+                  f"{err:.3g} (limit {lim:.3g})")
+            need(err <= lim, f"fused_bias_act_bwd {shape} {dtype} disagrees")
+            if dtype == torch.float32:
+                worst["fused_bias_act_bwd"] = max(worst["fused_bias_act_bwd"], err)
+    return worst
+
+
+def phase_timing_bwd(card_name):
+    """Per-PTI-step sums of the backward kernels over one PTI step's shapes
+    (TF32 off)."""
+    from stylegan_directions_face_reenactment_tpu_torch.ops.fused_act import (
+        fused_bias_act_bwd_cuda, fused_leaky_relu_bwd_plain)
+    from stylegan_directions_face_reenactment_tpu_torch.ops.upfirdn2d import make_kernel
+    from stylegan_directions_face_reenactment_tpu_torch.ops.upfirdn2d_kernel import (
+        upfirdn2d_backward, upfirdn2d_bwd_cuda)
+    bw, flops, _ = card_rates(card_name)
+    k = make_kernel((1, 3, 3, 1), gain=4)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype)[6:]
+        t = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+             "bytes": 0, "ops": 0}
+        for call, g in k1_bwd_inputs(dtype, gen):
+            n_out = 1
+            for d in call.shape:
+                n_out *= d
+            nbytes = (g.numel() + n_out) * g.element_size()
+            ops = n_out * 2 * 16       # up 1: every tap meets a sample
+            bound = 1e3 * max(nbytes / bw, ops / flops)
+            ms = time_ms(lambda: upfirdn2d_bwd_cuda(g, k, call.up, call.pad, call.shape))
+            plain = time_ms(lambda: upfirdn2d_backward(g, k, call.up, call.pad, call.shape))
+            lib = time_ms(library_k1_bwd(g, k, call))
+            print(f"[timing] upfirdn2d_bwd {call.name} (down {call.up}) {tuple(g.shape)} {tag}: "
+                  f"kernel {ms:.4f} ms, plain {plain:.4f} ms, library {lib:.4f} ms, bound "
+                  f"{bound:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s)")
+            for key, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+                           ("bound_ms", bound), ("bytes", nbytes), ("ops", ops)):
+                t[key] += v
+        out[("upfirdn2d_bwd", tag)] = t
+        t = {"ms": 0.0, "plain_ms": 0.0, "library_ms": None, "bound_ms": 0.0,
+             "bytes": 0, "ops": 0}
+        for shape, g, y in k2_bwd_inputs(dtype, gen):
+            nbytes = 3 * g.numel() * g.element_size()
+            ops = 2 * g.numel()         # a compare and a multiply
+            bound = 1e3 * max(nbytes / bw, ops / flops)
+            ms = time_ms(lambda: fused_bias_act_bwd_cuda(g, y))
+            plain = time_ms(lambda: fused_leaky_relu_bwd_plain(g, y))
+            print(f"[timing] fused_bias_act_bwd {shape} {tag}: kernel {ms:.4f} ms, plain "
+                  f"{plain:.4f} ms, bound {bound:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s)")
+            for key, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", bound),
+                           ("bytes", nbytes), ("ops", ops)):
+                t[key] += v
+        out[("fused_bias_act_bwd", tag)] = t
+    for (name, tag), t in out.items():
+        lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
+        print(f"[timing] {name} per PTI step, {tag}: kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, library {lib}, bound {t['bound_ms']:.4f} ms "
+              f"({t['bytes'] / 1e9:.4f} GB over {bw / 1e12:.2f} TB/s)")
+    return out
+
+
 def phase_slice():
     from stylegan_directions_face_reenactment_tpu_torch.geometry import (
         initialize_directions, make_shift_vector)
@@ -511,6 +665,8 @@ def _category(kernel_name):
         return "K3 fused conv block"
     if "upfirdn2d_kernel" in n:
         return "K1 upfirdn2d"
+    if "bias_act_bwd" in n:
+        return "K2-bwd fused bias-act backward"
     if "bias_act" in n:
         return "K2 fused bias-act"
     if any(s in n for s in ("conv", "cudnn", "xmma", "implicit", "dgrad", "wgrad",
@@ -590,8 +746,10 @@ def profile_request(tag, label, run):
         if dev is None:
             dev = getattr(e, "self_cuda_time_total", 0)
         # device-side events only: a CPU range (an aten op, an autograd
-        # Function) is credited with the kernels it launched as well
-        if dev > 0 and e.device_type == DeviceType.CUDA:
+        # Function) is credited with the kernels it launched as well, and a
+        # user annotation on the device's timeline (Adam's step) spans them
+        if dev > 0 and e.device_type == DeviceType.CUDA \
+                and not getattr(e, "is_user_annotation", False):
             cat = _category(e.key)
             per_cat[cat] = per_cat.get(cat, 0.0) + dev
             n_kernels += e.count
@@ -627,13 +785,28 @@ def counts():
     return (upfirdn2d_cuda, fused_bias_act_cuda, fused_conv_block_cuda)
 
 
+def bwd_counts():
+    from stylegan_directions_face_reenactment_tpu_torch.ops.fused_act import (
+        fused_bias_act_bwd_cuda)
+    from stylegan_directions_face_reenactment_tpu_torch.ops.upfirdn2d_kernel import (
+        upfirdn2d_bwd_cuda)
+    return (upfirdn2d_bwd_cuda, fused_bias_act_bwd_cuda)
+
+
 def reset_counts():
-    for k in counts():
+    for k in counts() + bwd_counts():
         k.launches = 0
+    bwd_counts()[0].down2_launches = 0
 
 
 def read_counts():
     return tuple(k.launches for k in counts())
+
+
+def read_bwd_counts():
+    """(K1 backward, of which down = 2, K2-bwd) launches."""
+    k1b, k2b = bwd_counts()
+    return (k1b.launches, k1b.down2_launches, k2b.launches)
 
 
 def flips_explained(hm_card, hm_cpu, atol):
@@ -944,6 +1117,225 @@ def phase_breakdown2(g, a, deca, sfd, fan, spec, trunc, src, fr):
                         lambda: fused(code, ps, angs, fr))
 
 
+def build_slice3_nets(device):
+    """Slice 2's nets plus the seeded e4e (IR-SE50 at 256, 14 styles, its
+    residual branches damped by ``E4E_BN2_SCALE``) and LPIPS/AlexNet."""
+    from stylegan_directions_face_reenactment_tpu_torch.utils.device import resolve_device
+    from stylegan_directions_face_reenactment_tpu_torch.weights import init_e4e, init_lpips
+    e4e = init_e4e(7, SIZE, device="cpu")
+    with torch.no_grad():
+        for blk in e4e.body:
+            blk.res_layer[4].weight.mul_(E4E_BN2_SCALE)
+    return build_slice2_nets(device) + (e4e.to(resolve_device(device)),
+                                        init_lpips(8, device=device))
+
+
+def fresh(t, device):
+    """A normal (not inference-mode) copy of ``t`` on ``device``: autograd
+    may save it."""
+    return t.detach().to(device).clone()
+
+
+def pti_first_step(g, lp, code, real, trunc):
+    """(loss, gradients of the tuned parameters) of one PTI step on g's
+    device."""
+    from stylegan_directions_face_reenactment_tpu_torch.pipeline.pti import (
+        pti_objective, split_tunable)
+    dev = g.input.input.device
+    code, real, trunc = (fresh(t, dev) for t in (code, real, trunc))
+    g = copy.deepcopy(g)
+    g.requires_grad_(False)
+    tuned = split_tunable(g)
+    for p in tuned:
+        p.requires_grad_(True)
+    total, _, _ = pti_objective(g, code, real, lp, trunc)
+    total.backward()
+    return float(total.detach()), [p.grad.cpu() for p in tuned]
+
+
+def phase_slice3():
+    """Source set-up on the card: e4e inversion → 200 PTI steps → source
+    DECA, float32, then one request served from its outputs."""
+    from stylegan_directions_face_reenactment_tpu_torch.geometry import initialize_directions
+    from stylegan_directions_face_reenactment_tpu_torch.models.stylegan2 import (
+        mapping, mean_latent, style_to_wplus, synthesis)
+    from stylegan_directions_face_reenactment_tpu_torch.ops.main_path import (
+        fused_bias_act_calls, pti_backward_calls, upfirdn2d_calls)
+    from stylegan_directions_face_reenactment_tpu_torch.pipeline import (
+        invert_image, make_fused_reenact_fn, optimize_g, setup_source, source_shape)
+    from stylegan_directions_face_reenactment_tpu_torch.pipeline import (
+        source_setup as source_setup_mod)
+    from stylegan_directions_face_reenactment_tpu_torch.pipeline.pti import TUNED_CONV_RANGE
+
+    g, a, deca, sfd, fan, e4e, lp = build_slice3_nets(None)
+    need(e4e.input_layer[0].weight.is_cuda and lp.net.layers[0].weight.is_cuda,
+         "e4e and LPIPS did not land on the card")
+    with torch.inference_mode():
+        trunc = mean_latent(g, torch.Generator().manual_seed(3), 4096)
+        z = torch.randn(1, 512, generator=torch.Generator().manual_seed(30)).cuda()
+        face = synthesis(g, style_to_wplus(g, [mapping(g, z)])).clamp(-1, 1)
+
+    def prep(frames):
+        # the source is a generated 256 face already: no detection, ok set
+        return frames[0][None], np.ones(1, bool)
+
+    kw = dict(truncation_latent=trunc, optimize_generator=True, lpips_params=lp,
+              lr=PTI_LR, fan_params=fan, s3fd_params=sfd)
+    setup_source(g, e4e, deca, [face[0]], prep, opt_steps=2, **kw)     # warm-up
+    before = {k: v.clone() for k, v in g.state_dict().items()}
+    # optimize_g is wrapped here, in this script only, to keep the loss dict
+    # that setup_source drops and the wall time of the 200 steps
+    real_optimize_g, kept = source_setup_mod.optimize_g, {}
+
+    def kept_optimize_g(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_optimize_g(*args, **kwargs)
+        torch.cuda.synchronize()
+        kept["s"], kept["losses"] = time.perf_counter() - t0, out[1]
+        return out
+
+    source_setup_mod.optimize_g = kept_optimize_g
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        src_img, code, g_src, p_src, ang_src = setup_source(
+            g, e4e, deca, [face[0]], prep, opt_steps=PTI_STEPS, **kw)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        fwd, bwd = read_counts(), read_bwd_counts()
+    finally:
+        source_setup_mod.optimize_g = real_optimize_g
+    peak = torch.cuda.max_memory_allocated()
+
+    pti = pti_backward_calls(SIZE, CM)
+    per_step = {"K1": len(upfirdn2d_calls(SIZE, CM, 1)),
+                "K1 backward up 1": sum(c.up == 1 for c in pti.upfirdn2d),
+                "K1 backward down 2": sum(c.up == 2 for c in pti.upfirdn2d),
+                "K2": len(fused_bias_act_calls(SIZE, CM, 1)),
+                "K2-bwd": len(pti.fused_bias_act)}
+    got = {"K1": fwd[0], "K1 backward up 1": bwd[0] - bwd[1], "K1 backward down 2": bwd[1],
+           "K2": fwd[1], "K2-bwd": bwd[2]}
+    print(f"[slice3] launches in setup_source ({PTI_STEPS} PTI steps): "
+          + ", ".join(f"{k} {v} ({v / PTI_STEPS:g} a step, expected {per_step[k]})"
+                      for k, v in got.items()) + f"; K3 {fwd[2]} (the source's FAN pass)")
+    need(all(got[k] == PTI_STEPS * per_step[k] for k in got) and fwd[2] == K3_PER_PASS,
+         f"slice 3 launches {got}, K3 {fwd[2]}: expected {per_step} a PTI step and "
+         f"{K3_PER_PASS} K3")
+
+    hist = kept["losses"]["loss_history"].cpu()
+    print(f"[slice3] PTI loss history ({len(hist)} steps, 100*MSE + LPIPS): first "
+          f"{float(hist[0]):.6g}, step {len(hist) // 4} {float(hist[len(hist) // 4]):.6g}, "
+          f"step {len(hist) // 2} {float(hist[len(hist) // 2]):.6g}, last "
+          f"{float(hist[-1]):.6g}; final MSE "
+          f"{float(kept['losses']['l2_loss']):.6g}, LPIPS {float(kept['losses']['lpips_loss']):.6g}")
+    need(len(hist) == PTI_STEPS and bool(torch.isfinite(hist).all())
+         and float(hist[-1]) < float(hist[0]), "the PTI loss history is not finite and falling")
+    need(all(torch.equal(v, before[k]) for k, v in g.state_dict().items()),
+         "setup_source changed the caller's generator")
+    lo, hi = TUNED_CONV_RANGE
+    tuned_prefixes = tuple(f"convs.{i}." for i in range(lo, hi))
+    changed = sorted(k for k, v in g_src.state_dict().items() if not torch.equal(v, before[k]))
+    need(changed and all(k.startswith(tuned_prefixes) for k in changed)
+         and all(f"convs.{i}.conv.weight" in changed for i in range(lo, hi)),
+         f"the tuned generator changed {changed[:5]}..., not exactly convs[{lo}..{hi - 1}]")
+    print(f"[slice3] the caller's generator is unchanged bit for bit; the tuned copy "
+          f"differs in {len(changed)} tensors, all in convs[{lo}..{hi - 1}]; code "
+          f"{tuple(code.shape)}, angles {[round(float(v), 3) for v in ang_src[0]]}")
+
+    # times, warm (TF32 off): CUDA events for e4e and the source DECA, the
+    # host clock around synchronized runs of PTI_RUN_STEPS steps
+    with torch.no_grad():
+        e4e_ms = time_ms(lambda: invert_image(src_img, e4e, g, truncation_latent=trunc,
+                                              resynthesize=False), reps=10)
+        deca_ms = time_ms(lambda: source_shape(deca, src_img, fan, sfd), reps=10)
+    steps_ms = []
+    for _ in range(PTI_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        optimize_g(g, code, src_img, lp, trunc, opt_steps=PTI_RUN_STEPS, lr=PTI_LR)
+        torch.cuda.synchronize()
+        steps_ms.append(1e3 * (time.perf_counter() - t0) / PTI_RUN_STEPS)
+    steps_ms.sort()
+    step_ms = statistics.median(steps_ms)
+    times = {"e4e_ms": e4e_ms, "pti_step_ms": step_ms, "pti_step_min": steps_ms[0],
+             "pti_step_max": steps_ms[-1], "pti_200_s": kept["s"], "deca_ms": deca_ms,
+             "setup_s": setup_s, "peak_bytes": peak}
+    print(f"[slice3] e4e inversion {e4e_ms:.3f} ms (CUDA events, 10 calls); PTI step "
+          f"{step_ms:.3f} ms median of {PTI_RUNS} runs of {PTI_RUN_STEPS} steps (min "
+          f"{steps_ms[0]:.3f}, max {steps_ms[-1]:.3f}; host clock, synchronized); the "
+          f"{PTI_STEPS} steps of the set-up run {kept['s']:.3f} s; source DECA (SFD + FAN "
+          f"alignment, ResNet-50) {deca_ms:.3f} ms; setup_source {setup_s:.3f} s; peak "
+          f"memory {peak / 2**30:.3f} GiB")
+    profile_request("float32", f"[slice3] {PTI_RUN_STEPS} PTI steps",
+                    lambda: optimize_g(g, code, src_img, lp, trunc,
+                                       opt_steps=PTI_RUN_STEPS, lr=PTI_LR))
+
+    # the same weights on the CPU, where the plain versions run
+    t0 = time.perf_counter()
+    cg, _, _, _, _, ce4e, clp = build_slice3_nets("cpu")
+    with torch.no_grad():
+        _, code_cpu = invert_image(src_img.cpu(), ce4e, cg, truncation_latent=trunc.cpu(),
+                                   resynthesize=False)
+    code_err = float((code.cpu() - code_cpu).abs().max())
+    code_ok = allclose_scaled(code.cpu(), code_cpu, 1e-4, 1e-4)
+    card = pti_first_step(g, lp, code, src_img, trunc)
+    cpu = pti_first_step(cg, clp, code, src_img, trunc)
+    loss_ok = abs(card[0] - cpu[0]) <= 1e-4 * abs(cpu[0])
+    # a noise weight's gradient is one scalar, a sum of g·noise over C·R²
+    # pixels that largely cancel, so the 8 are held as one vector: rtol 1e-3,
+    # atol 1e-2·max (read 6e-5 to 2.8e-3·max on an NVIDIA H100 80GB HBM3 at
+    # 700 W; cuDNN's algorithm choices differ between processes); every
+    # other tensor rtol 1e-3, atol 2e-3·max (read 5e-6 to 6.5e-4·max)
+    noise = [torch.cat([t for t in grads if t.numel() == 1]) for grads in (card[1], cpu[1])]
+    pairs = [(a, w) for a, w in zip(card[1], cpu[1]) if w.numel() > 1]
+    grad_rel = max(float((a - w).abs().max() / w.abs().max()) for a, w in pairs)
+    noise_rel = float((noise[0] - noise[1]).abs().max() / noise[1].abs().max())
+    grads_ok = (allclose_scaled(noise[0], noise[1], 1e-3, 1e-2)
+                and all(allclose_scaled(a, w, 1e-3, 2e-3) for a, w in pairs))
+    hist_card = optimize_g(g, code, src_img, lp, trunc, opt_steps=CPU_PTI_STEPS,
+                           lr=PTI_LR)[1]["loss_history"].cpu()
+    hist_cpu = optimize_g(cg, code.cpu(), src_img.cpu(), clp, trunc.cpu(),
+                          opt_steps=CPU_PTI_STEPS, lr=PTI_LR)[1]["loss_history"]
+    hist_rel = float(((hist_card - hist_cpu).abs() / hist_cpu.abs()).max())
+    print(f"[slice3] card vs CPU, float32: e4e code max abs err {code_err:.3g} of max|code| "
+          f"{float(code_cpu.abs().max()):.3g} (rtol 1e-4, atol 1e-4*max: "
+          f"{'ok' if code_ok else 'FAIL'}); first PTI step loss {card[0]:.7g} vs "
+          f"{cpu[0]:.7g} (rtol 1e-4: {'ok' if loss_ok else 'FAIL'}), gradients of the "
+          f"{len(card[1])} tuned tensors worst max err {grad_rel:.3g} of their max (rtol "
+          f"1e-3, atol 2e-3*max), noise weights {noise_rel:.3g} of their max (rtol 1e-3, atol "
+          f"1e-2*max): "
+          f"{'ok' if grads_ok else 'FAIL'}; losses of "
+          f"{CPU_PTI_STEPS} steps {[round(float(v), 4) for v in hist_card]} vs "
+          f"{[round(float(v), 4) for v in hist_cpu]}, worst relative {hist_rel:.3g} (limit "
+          f"1e-3: Adam's first step is near +-lr on every weight); "
+          f"{time.perf_counter() - t0:.1f} s")
+    need(code_ok and loss_ok and grads_ok and hist_rel <= 1e-3,
+         "the card disagrees with the CPU on slice 3")
+
+    # serve one request of raw frames from the set-up's outputs
+    spec = initialize_directions("voxceleb", 15, 6.0)
+    frames = torch.randint(0, 256, (BATCH,) + FRAME_HW + (3,),
+                           generator=torch.Generator().manual_seed(31), dtype=torch.uint8).cuda()
+    served = {}
+    for tag, gen in (("tuned", g_src), ("untuned", g)):
+        fn = make_fused_reenact_fn(gen, a, deca, spec, sfd, fan, truncation=0.7,
+                                   truncation_latent=trunc, fan_params=fan, s3fd_params=sfd,
+                                   outputs="full")
+        served[tag] = fn(code, p_src, ang_src, frames)[0]
+    torch.cuda.synchronize()
+    reen = served["tuned"]
+    diff = float((reen - served["untuned"]).abs().max())
+    print(f"[slice3] one request of {BATCH} raw {FRAME_HW[0]}x{FRAME_HW[1]} frames from the "
+          f"set-up's code, coefficients and tuned generator: {tuple(reen.shape)}, finite "
+          f"{bool(torch.isfinite(reen).all())}; max |tuned - untuned| {diff:.4g}")
+    need(tuple(reen.shape) == (BATCH, SIZE, SIZE, 3) and bool(torch.isfinite(reen).all())
+         and diff > 0, "serving from the tuned generator failed")
+    return times, fwd, bwd
+
+
 def main():
     name, smi = phase_device()
     torch.backends.cudnn.allow_tf32 = False
@@ -951,26 +1343,42 @@ def main():
     print("[setup] TF32 off for cuDNN and matmul in every phase, timing included")
     phase_build()
     worst = phase_parity()
+    worst.update(phase_parity_bwd())
     timing = phase_timing(name)
+    timing.update(phase_timing_bwd(name))
     results, launches = phase_slice()
     results2, launches2 = phase_slice2()
+    times3, fwd3, bwd3 = phase_slice3()
     for label, res in (("slice 1, resize path", results),
                        ("slice 2, default path, 562x1000 raw frames", results2)):
         for tag, r in res.items():
             print(f"[result] {label}, {tag}: {r['fps']:.2f} frames/s (median of "
                   f"{r['rounds']} rounds, {r['fps_min']:.2f}-{r['fps_max']:.2f}), peak "
                   f"{r['peak_bytes']} bytes on {smi}")
-    launches = [launches[0] + launches2[0], launches[1] + launches2[1], launches2[2]]
-    need(all(n > 0 for n in launches), f"a kernel of the main paths never launched: {launches}")
+    print(f"[result] slice 3, source set-up, float32: setup_source {times3['setup_s']:.3f} s "
+          f"({PTI_STEPS} PTI steps {times3['pti_200_s']:.3f} s), PTI step "
+          f"{times3['pti_step_ms']:.3f} ms ({times3['pti_step_min']:.3f}-"
+          f"{times3['pti_step_max']:.3f}), e4e {times3['e4e_ms']:.3f} ms, source DECA "
+          f"{times3['deca_ms']:.3f} ms, peak {times3['peak_bytes']} bytes on {smi}")
+    launches = [launches[0] + launches2[0] + fwd3[0], launches[1] + launches2[1] + fwd3[1],
+                launches2[2] + fwd3[2], bwd3[0], bwd3[2]]
+    need(all(n > 0 for n in launches) and bwd3[1] > 0,
+         f"a kernel of the main paths never launched: {launches}, K1 down 2 {bwd3[1]}")
 
     kernels = []
     for name_k, route, source, replaces, n in (
             ("upfirdn2d", "cuda", f"{PORT}/csrc/upfirdn2d.cu",
              "stylegan_directions_face_reenactment_tpu/ops/pallas_upfirdn.py:256",
              launches[0]),
+            ("upfirdn2d_bwd", "cuda", f"{PORT}/csrc/upfirdn2d.cu",
+             "stylegan_directions_face_reenactment_tpu/ops/pallas_upfirdn.py:273",
+             launches[3]),
             ("fused_bias_act", "cuda", f"{PORT}/csrc/fused_bias_act.cu",
              "stylegan_directions_face_reenactment_tpu/ops/fused_act.py:92",
              launches[1]),
+            ("fused_bias_act_bwd", "cuda", f"{PORT}/csrc/fused_bias_act.cu",
+             "stylegan_directions_face_reenactment_tpu/ops/fused_act.py:106",
+             launches[4]),
             ("fused_conv_block", "cuda", f"{PORT}/csrc/fused_conv_block.cu",
              "stylegan_directions_face_reenactment_tpu/ops/fused_conv_block.py:146",
              launches[2])):

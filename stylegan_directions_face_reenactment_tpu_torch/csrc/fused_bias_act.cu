@@ -1,15 +1,22 @@
-// Fused bias + LeakyReLU + gain, forward: y = leaky_relu(x + b[c], slope) * scale.
+// Fused bias + LeakyReLU + gain, forward: y = leaky_relu(x + b[c], slope) * scale,
+// and its backward: dx = g * scale where y >= 0, g * scale * slope elsewhere.
 //
-// Replaces the Pallas TPU kernel
+// Replaces the Pallas TPU kernels
 // stylegan_directions_face_reenactment_tpu/ops/fused_act.py::_pallas_fwd_call
-// (body `_fwd_kernel`).
+// (body `_fwd_kernel`) and `_pallas_bwd_call` (body `_bwd_kernel`). As there,
+// the backward takes its mask from the sign of the saved output (scale > 0,
+// so y >= 0 iff x + b >= 0): only y is kept for the backward, never x. The
+// bias gradient, a sum of dx over every dim but the channel's, is left to a
+// PyTorch reduction, as the JAX package leaves it to XLA outside its kernel.
 //
 // Layout: the bias lies on dim 1 of a contiguous tensor, so element i has
 // channel (i / inner) % C, with inner = H*W for NCHW and 1 for (B, C).
 //
 // What bounds it on an H100: bytes. Two flops an element against 4 (bf16) or
 // 8 (f32) bytes moved; the least time is one read of x and one write of y at
-// the card's memory rate (the bias is C values and stays in cache).
+// the card's memory rate (the bias is C values and stays in cache). The
+// backward, one compare and one multiply an element, reads g and y and
+// writes dx: 6 (bf16) or 12 (f32) bytes an element.
 //
 // What the design does about that: one pass, so the add, the activation and
 // the gain cost one read and one write instead of the three passes eager
@@ -17,7 +24,11 @@
 // each thread moves 4 elements of one channel with one 16-byte (f32) or
 // 8-byte (bf16) access; otherwise one element a thread. A grid-stride loop
 // keeps the grid at a few waves of the 132 SMs. Arithmetic is in f32 and is
-// rounded once on the store.
+// rounded once on the store. The backward has the same shape: one pass, 4
+// elements a thread with 16- or 8-byte accesses where n is a multiple of 4
+// and the pointers allow it; its two gains (scale, scale * slope) come in
+// as f32 values computed once on the host, so the plain version's products
+// are the same to the last bit.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -85,6 +96,52 @@ __global__ void bias_act_vec4_kernel(const T* __restrict__ x, const T* __restric
   }
 }
 
+__device__ __forceinline__ float act_grad(float g, float y, float gain_pos,
+                                          float gain_neg) {
+  return g * (y >= 0.f ? gain_pos : gain_neg);
+}
+
+template <typename T>
+__global__ void bias_act_bwd_kernel(const T* __restrict__ g, const T* __restrict__ y,
+                                    T* __restrict__ dx, int64_t n, float gain_pos,
+                                    float gain_neg) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
+    dx[i] = from_f32<T>(act_grad(to_f32(g[i]), to_f32(y[i]), gain_pos, gain_neg));
+  }
+}
+
+// Four consecutive elements a thread (n % 4 == 0).
+template <typename T>
+__global__ void bias_act_bwd_vec4_kernel(const T* __restrict__ g, const T* __restrict__ y,
+                                         T* __restrict__ dx, int64_t n4, float gain_pos,
+                                         float gain_neg) {
+  using V = typename std::conditional<std::is_same<T, float>::value, float4, Bf16x4>::type;
+  const V* gv = reinterpret_cast<const V*>(g);
+  const V* yv = reinterpret_cast<const V*>(y);
+  V* dv = reinterpret_cast<V*>(dx);
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4; i += stride) {
+    const V a = gv[i];
+    const V b = yv[i];
+    V o;
+    if constexpr (std::is_same<T, float>::value) {
+      o.x = act_grad(a.x, b.x, gain_pos, gain_neg);
+      o.y = act_grad(a.y, b.y, gain_pos, gain_neg);
+      o.z = act_grad(a.z, b.z, gain_pos, gain_neg);
+      o.w = act_grad(a.w, b.w, gain_pos, gain_neg);
+    } else {
+      const float2 glo = __bfloat1622float2(a.lo), ghi = __bfloat1622float2(a.hi);
+      const float2 ylo = __bfloat1622float2(b.lo), yhi = __bfloat1622float2(b.hi);
+      o.lo = __floats2bfloat162_rn(act_grad(glo.x, ylo.x, gain_pos, gain_neg),
+                                   act_grad(glo.y, ylo.y, gain_pos, gain_neg));
+      o.hi = __floats2bfloat162_rn(act_grad(ghi.x, yhi.x, gain_pos, gain_neg),
+                                   act_grad(ghi.y, yhi.y, gain_pos, gain_neg));
+    }
+    dv[i] = o;
+  }
+}
+
 int grid_for(int64_t work, int threads) {
   const int64_t blocks = (work + threads - 1) / threads;
   const int64_t cap = 132 * 32;  // a few waves of the SMs; the loop strides the rest
@@ -114,6 +171,29 @@ int launch(const void* x, const void* bias, void* y, int64_t n, int channels,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_bwd(const void* g, const void* y, void* dx, int64_t n, float gain_pos,
+               float gain_neg, void* stream) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const T* gt = static_cast<const T*>(g);
+  const T* yt = static_cast<const T*>(y);
+  T* dt = static_cast<T*>(dx);
+  constexpr int threads = 256;
+  constexpr uintptr_t align = 4 * sizeof(T);
+  const bool vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(g) % align == 0 &&
+                   reinterpret_cast<uintptr_t>(y) % align == 0 &&
+                   reinterpret_cast<uintptr_t>(dx) % align == 0;
+  if (vec) {
+    bias_act_bwd_vec4_kernel<T><<<grid_for(n / 4, threads), threads, 0, s>>>(
+        gt, yt, dt, n / 4, gain_pos, gain_neg);
+  } else {
+    bias_act_bwd_kernel<T><<<grid_for(n, threads), threads, 0, s>>>(
+        gt, yt, dt, n, gain_pos, gain_neg);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int fused_bias_act_f32(const void* x, const void* bias, void* y, int64_t n,
@@ -126,4 +206,14 @@ extern "C" int fused_bias_act_bf16(const void* x, const void* bias, void* y, int
                                    int channels, int64_t inner, float slope,
                                    float scale, void* stream) {
   return launch<__nv_bfloat16>(x, bias, y, n, channels, inner, slope, scale, stream);
+}
+
+extern "C" int fused_bias_act_bwd_f32(const void* g, const void* y, void* dx, int64_t n,
+                                      float gain_pos, float gain_neg, void* stream) {
+  return launch_bwd<float>(g, y, dx, n, gain_pos, gain_neg, stream);
+}
+
+extern "C" int fused_bias_act_bwd_bf16(const void* g, const void* y, void* dx, int64_t n,
+                                       float gain_pos, float gain_neg, void* stream) {
+  return launch_bwd<__nv_bfloat16>(g, y, dx, n, gain_pos, gain_neg, stream);
 }

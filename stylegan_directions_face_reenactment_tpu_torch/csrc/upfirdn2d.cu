@@ -1,13 +1,19 @@
-// upfirdn2d for up in {1, 2}, down = 1, on NCHW planes, f32 and bf16.
+// upfirdn2d for (up, down) in {(1, 1), (2, 1), (1, 2)} on NCHW planes, f32
+// and bf16.
 //
 // Replaces the Pallas TPU kernel
-// stylegan_directions_face_reenactment_tpu/ops/pallas_upfirdn.py::_forward.
+// stylegan_directions_face_reenactment_tpu/ops/pallas_upfirdn.py::_forward
+// (up in {1, 2}, down 1) and the XLA upfirdn2d of that file's `_backward`,
+// the gradient of the forward: the cotangent through the flipped taps with up
+// and down swapped, so the backward of the 2x upsample is a down = 2 call and
+// the backward of the blur an up = down = 1 call.
 //
 // What it computes, per spatial axis: zero-stuff the input by `up`, pad by
 // (p0, p1), convolve with the FIR taps (a true convolution, so the taps are
-// flipped), keep every sample. Written polyphase: output `o` takes the
-// flipped taps `j` with (o - p0 + j) = 0 (mod up) from input (o - p0 + j)/up,
-// so nothing is zero-stuffed in memory.
+// flipped), keep every `down`-th sample. Written polyphase: output `o` takes
+// the flipped taps `j` with (o * down - p0 + j) = 0 (mod up) from input
+// (o * down - p0 + j) / up, so nothing is zero-stuffed or computed and then
+// dropped in memory.
 //
 // What bounds it on an H100: bytes. Each output reads at most 16 inputs
 // (4 with up = 2) and does as many FMAs, far below the 295 FLOP/byte where the
@@ -16,9 +22,10 @@
 //
 // What the design does about that: one thread per output element, with
 // neighbouring threads on neighbouring output columns, so the reads of a warp
-// fall on one or two cache lines of an input row and the 4x4 neighbourhood is
-// served from L1 after the first touch; every input byte comes from device
-// memory about once. The taps ride in the kernel's parameter space (constant
+// fall on one or two cache lines of an input row (two to four with down = 2,
+// whose outputs step two inputs apart) and the 4x4 neighbourhood is served
+// from L1 after the first touch; every input byte comes from device memory
+// about once. The taps ride in the kernel's parameter space (constant
 // bank), so no device buffer is allocated. The block shape is cut to the
 // plane for the small planes (4x4 .. 32x32) so few threads idle. The TPU
 // kernel's width padding, row-band DMA double-buffering and phase interleave
@@ -44,7 +51,7 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(v);
 }
 
-template <typename T, int UP>
+template <typename T, int UP, int DOWN>
 __global__ void upfirdn2d_kernel(const T* __restrict__ x, T* __restrict__ y,
                                  int planes, int in_h, int in_w, int out_h,
                                  int out_w, int pad_x0, int pad_y0, int kh,
@@ -58,14 +65,14 @@ __global__ void upfirdn2d_kernel(const T* __restrict__ x, T* __restrict__ y,
 #pragma unroll
     for (int j = 0; j < kMaxTaps; ++j) {
       if (j >= kh) break;
-      const int ty = oy + j - pad_y0;  // row in the zero-stuffed input
+      const int ty = oy * DOWN + j - pad_y0;  // row in the zero-stuffed input
       if (ty < 0 || ty % UP != 0) continue;
       const int iy = ty / UP;
       if (iy >= in_h) continue;
 #pragma unroll
       for (int i = 0; i < kMaxTaps; ++i) {
         if (i >= kw) break;
-        const int tx = ox + i - pad_x0;
+        const int tx = ox * DOWN + i - pad_x0;
         if (tx < 0 || tx % UP != 0) continue;
         const int ix = tx / UP;
         if (ix >= in_w) continue;
@@ -78,9 +85,11 @@ __global__ void upfirdn2d_kernel(const T* __restrict__ x, T* __restrict__ y,
 
 template <typename T>
 int launch(const void* x, void* y, int planes, int in_h, int in_w, int out_h,
-           int out_w, int up, int pad_x0, int pad_y0, int kh, int kw,
+           int out_w, int up, int down, int pad_x0, int pad_y0, int kh, int kw,
            const float* taps, void* stream) {
-  if ((up != 1 && up != 2) || kh < 1 || kw < 1 || kh > kMaxTaps || kw > kMaxTaps ||
+  const bool supported = (up == 1 && down == 1) || (up == 2 && down == 1) ||
+                         (up == 1 && down == 2);
+  if (!supported || kh < 1 || kw < 1 || kh > kMaxTaps || kw > kMaxTaps ||
       planes < 1 || out_h < 1 || out_w < 1) {
     return (int)cudaErrorInvalidValue;
   }
@@ -96,12 +105,15 @@ int launch(const void* x, void* y, int planes, int in_h, int in_w, int out_h,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const T* xt = static_cast<const T*>(x);
   T* yt = static_cast<T*>(y);
-  if (up == 1) {
-    upfirdn2d_kernel<T, 1><<<grid, block, 0, s>>>(xt, yt, planes, in_h, in_w, out_h,
-                                                  out_w, pad_x0, pad_y0, kh, kw, t);
+  if (up == 2) {
+    upfirdn2d_kernel<T, 2, 1><<<grid, block, 0, s>>>(xt, yt, planes, in_h, in_w, out_h,
+                                                     out_w, pad_x0, pad_y0, kh, kw, t);
+  } else if (down == 2) {
+    upfirdn2d_kernel<T, 1, 2><<<grid, block, 0, s>>>(xt, yt, planes, in_h, in_w, out_h,
+                                                     out_w, pad_x0, pad_y0, kh, kw, t);
   } else {
-    upfirdn2d_kernel<T, 2><<<grid, block, 0, s>>>(xt, yt, planes, in_h, in_w, out_h,
-                                                  out_w, pad_x0, pad_y0, kh, kw, t);
+    upfirdn2d_kernel<T, 1, 1><<<grid, block, 0, s>>>(xt, yt, planes, in_h, in_w, out_h,
+                                                     out_w, pad_x0, pad_y0, kh, kw, t);
   }
   return (int)cudaGetLastError();
 }
@@ -109,15 +121,17 @@ int launch(const void* x, void* y, int planes, int in_h, int in_w, int out_h,
 }  // namespace
 
 extern "C" int upfirdn2d_f32(const void* x, void* y, int planes, int in_h, int in_w,
-                             int out_h, int out_w, int up, int pad_x0, int pad_y0,
-                             int kh, int kw, const float* taps, void* stream) {
-  return launch<float>(x, y, planes, in_h, in_w, out_h, out_w, up, pad_x0, pad_y0,
-                       kh, kw, taps, stream);
+                             int out_h, int out_w, int up, int down, int pad_x0,
+                             int pad_y0, int kh, int kw, const float* taps,
+                             void* stream) {
+  return launch<float>(x, y, planes, in_h, in_w, out_h, out_w, up, down, pad_x0,
+                       pad_y0, kh, kw, taps, stream);
 }
 
 extern "C" int upfirdn2d_bf16(const void* x, void* y, int planes, int in_h, int in_w,
-                              int out_h, int out_w, int up, int pad_x0, int pad_y0,
-                              int kh, int kw, const float* taps, void* stream) {
-  return launch<__nv_bfloat16>(x, y, planes, in_h, in_w, out_h, out_w, up, pad_x0,
-                               pad_y0, kh, kw, taps, stream);
+                              int out_h, int out_w, int up, int down, int pad_x0,
+                              int pad_y0, int kh, int kw, const float* taps,
+                              void* stream) {
+  return launch<__nv_bfloat16>(x, y, planes, in_h, in_w, out_h, out_w, up, down,
+                               pad_x0, pad_y0, kh, kw, taps, stream);
 }

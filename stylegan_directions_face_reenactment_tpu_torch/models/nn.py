@@ -1,7 +1,10 @@
 """Shared NN primitives for the frozen nets (NCHW, inference mode).
 
 What the serving path calls: the DECA ResNet-50 and its MLP head, the
-S3FD and FAN face nets, and the separable warps of the face alignment.
+S3FD and FAN face nets, and the separable warps of the face alignment;
+source set-up adds the e4e encoder's IR-SE blocks (PReLU, sigmoid gates,
+LeakyReLU heads, the align-corners upsample of its feature pyramid) and
+LPIPS's AlexNet.
 Batch norm is inference-mode, folded at call time. Conv weights are OIHW;
 linear weights (out, in). Weights are cast to the input's dtype at use, so
 a bf16 input runs the net in bf16.
@@ -56,6 +59,19 @@ def relu(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(x, 0)
 
 
+def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
+    return torch.where(x >= 0, x, x * slope)
+
+
+def prelu(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """Per-channel PReLU on dim 1; ``a`` holds one slope a channel."""
+    return torch.where(x >= 0, x, x * a.to(x.dtype).reshape((1, -1) + (1,) * (x.dim() - 2)))
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    return torch.sigmoid(x)
+
+
 def max_pool2d(x: torch.Tensor, window: int, stride: Optional[int] = None,
                padding: int = 0) -> torch.Tensor:
     return F.max_pool2d(x, window, stride or window, padding)
@@ -80,11 +96,14 @@ def adaptive_avg_pool2d(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tenso
     return F.adaptive_avg_pool2d(x, out_hw)
 
 
-def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
-    """Bilinear resize of an NCHW batch, half-pixel centres, without
-    antialiasing (the JAX package's ``jax.image.resize(..., antialias=False)``)."""
+def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int],
+                    align_corners: bool = False) -> torch.Tensor:
+    """Bilinear resize of an NCHW batch without antialiasing: half-pixel
+    centres (the JAX package's ``jax.image.resize(..., antialias=False)``),
+    or with ``align_corners`` the corner samples kept (samples at
+    ``linspace(0, n - 1, out)``, clamped at the border)."""
     return F.interpolate(x, size=tuple(out_hw), mode="bilinear",
-                         align_corners=False, antialias=False)
+                         align_corners=align_corners, antialias=False)
 
 
 @contextlib.contextmanager

@@ -12,6 +12,11 @@ JAX. Layout changes at the boundary:
   * batch norm {scale, offset, mean, var} → {weight, bias, running_mean,
     running_var}; linear (out, in) unchanged.
 
+e4e's style heads ``convs[j]`` / ``biases[j]`` land on the reference's
+``styles.N.convs.(2j)`` (LeakyReLUs sit between them); LPIPS's ``convs`` on
+``net.layers.{0,3,6,8,10}`` and its ``lins`` (1, 1, C, 1) on
+``lin.N.1.weight`` (1, C, 1, 1).
+
 The last FAN module's ``bl``/``al``, which the JAX package zero-fills to
 share one scan body, have no counterpart in the port and are not read.
 
@@ -30,8 +35,10 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..losses.lpips import ALEX_LAYER_IDS, LPIPS
 from ..models.deca.deca import DECA
 from ..models.direction_matrix import DirectionMatrix
+from ..models.e4e import Encoder4Editing
 from ..models.face.fan import FAN
 from ..models.face.s3fd import HEADS, NORMS, S3FD, TRUNK
 from ..models.stylegan2 import (ConstantInput, EqualLinear, Generator,
@@ -195,6 +202,52 @@ def fan_from_jax(params: Params, device: DeviceLike = None) -> FAN:
     return fan.to(resolve_device(device))
 
 
+def e4e_from_jax(params: Params, device: DeviceLike = None) -> Encoder4Editing:
+    """The JAX e4e pytree (``convert_e4e_encoder``'s or
+    ``init_e4e_encoder``'s layout) → :class:`Encoder4Editing`."""
+    style_count = params["meta"]["style_count"]
+    hwio = (3, 2, 0, 1)
+    a: Dict[str, np.ndarray] = {"input_layer.0.weight": _np(params["input"]["conv"], hwio),
+                                "input_layer.2.weight": _np(params["input"]["prelu"])}
+    _bn(a, "input_layer.1", params["input"]["bn"])
+    for i, blk in enumerate(params["body"]):
+        pre = f"body.{i}"
+        _bn(a, f"{pre}.res_layer.0", blk["bn0"])
+        a[f"{pre}.res_layer.1.weight"] = _np(blk["conv1"], hwio)
+        a[f"{pre}.res_layer.2.weight"] = _np(blk["prelu"])
+        a[f"{pre}.res_layer.3.weight"] = _np(blk["conv2"], hwio)
+        _bn(a, f"{pre}.res_layer.4", blk["bn2"])
+        a[f"{pre}.res_layer.5.fc1.weight"] = _np(blk["se"]["fc1"], hwio)
+        a[f"{pre}.res_layer.5.fc2.weight"] = _np(blk["se"]["fc2"], hwio)
+        if "shortcut" in blk:
+            a[f"{pre}.shortcut_layer.0.weight"] = _np(blk["shortcut"]["conv"], hwio)
+            _bn(a, f"{pre}.shortcut_layer.1", blk["shortcut"]["bn"])
+    for i, st in enumerate(params["styles"]):
+        for j, (w, b) in enumerate(zip(st["convs"], st["biases"])):
+            a[f"styles.{i}.convs.{2 * j}.weight"] = _np(w, hwio)
+            a[f"styles.{i}.convs.{2 * j}.bias"] = _np(b)
+        a[f"styles.{i}.linear.weight"] = _np(st["linear"]["weight"])
+        a[f"styles.{i}.linear.bias"] = _np(st["linear"]["bias"])
+    for name in ("latlayer1", "latlayer2"):
+        _conv_bias(a, name, params[name])
+    e = Encoder4Editing(2 ** ((style_count + 2) // 2))
+    _load(e, a)
+    return e.to(resolve_device(device))
+
+
+def lpips_from_jax(params: Params, device: DeviceLike = None) -> LPIPS:
+    """The JAX LPIPS pytree (``convert_lpips_alex``'s or ``init_lpips_alex``'s
+    layout) → :class:`LPIPS`."""
+    a: Dict[str, np.ndarray] = {}
+    for idx, conv in zip(ALEX_LAYER_IDS, params["convs"]):
+        _conv_bias(a, f"net.layers.{idx}", conv)
+    for i, w in enumerate(params["lins"]):
+        a[f"lin.{i}.1.weight"] = _np(w, (3, 2, 0, 1))
+    lp = LPIPS()
+    _load(lp, a)
+    return lp.to(resolve_device(device))
+
+
 # ---------------------------------------------------------------------------
 # Seeded random init
 # ---------------------------------------------------------------------------
@@ -284,3 +337,45 @@ def init_fan(seed: int = 0, num_modules: int = 4, device: DeviceLike = None) -> 
                 if m.bias is not None:
                     m.bias.zero_()
     return fan.to(dev)
+
+
+def init_e4e(seed: int = 0, image_resolution: int = 256,
+             device: DeviceLike = None) -> Encoder4Editing:
+    """The JAX package's ``init_e4e_encoder`` distributions: every conv
+    (stem, body, SE gates, shortcuts, style heads, lateral layers) He-uniform
+    U(±sqrt(6 / (in·kh·kw))) with zero biases, batch norm at identity
+    statistics, PReLU slopes 0.25, equalized linears N(0, 1) with zero
+    biases."""
+    dev = resolve_device(device)
+    rng = torch.Generator().manual_seed(seed)
+    e = Encoder4Editing(image_resolution)
+    with torch.no_grad():
+        for m in e.modules():
+            if isinstance(m, nn.Conv2d):
+                _, cin, kh, kw = m.weight.shape
+                lim = math.sqrt(6.0 / (cin * kh * kw))
+                m.weight.copy_((torch.rand(m.weight.shape, generator=rng) * 2 - 1) * lim)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, EqualLinear):
+                m.weight.copy_(torch.randn(m.weight.shape, generator=rng))
+    return e.to(dev)
+
+
+def init_lpips(seed: int = 0, device: DeviceLike = None) -> LPIPS:
+    """The JAX package's ``init_lpips_alex`` distributions: AlexNet convs
+    U(±1/sqrt(in·k·k)) with zero biases, linear heads U(0, 2/C)."""
+    dev = resolve_device(device)
+    rng = torch.Generator().manual_seed(seed)
+    lp = LPIPS()
+    with torch.no_grad():
+        for idx in ALEX_LAYER_IDS:
+            conv = lp.net.layers[idx]
+            _, cin, k, _ = conv.weight.shape
+            lim = 1.0 / math.sqrt(cin * k * k)
+            conv.weight.copy_((torch.rand(conv.weight.shape, generator=rng) * 2 - 1) * lim)
+            conv.bias.zero_()
+        for lin in lp.lin:
+            w = lin[1].weight
+            w.copy_(torch.rand(w.shape, generator=rng) * (2.0 / w.shape[1]))
+    return lp.to(dev)

@@ -1,7 +1,11 @@
 """The port's hand-written CUDA kernels against their plain PyTorch
 versions on the card, at the serving path's shapes (voxceleb-256, channel
 multiplier 1, a batch of 16; K3 at the 2DFAN4 hourglass shapes of a batch
-of 16 and of 1), in float32 and bf16.
+of 16 and of 1) and, for the backward of K1 (down = 2 for the skip
+upsamples) and K2, at the shapes of one PTI step (batch 1), in float32 and
+bf16; the autograd Functions against autograd through the plain versions;
+and the gradients of one PTI step of the voxceleb generator, kernel path on
+the card against the plain path on the CPU.
 
 These need a CUDA card and nvcc; they are marked ``cuda`` and skip
 elsewhere (the fixture decides, so every worker collects the same tests).
@@ -15,7 +19,14 @@ the port need not have JAX.)
 Tolerances: float32 atol 1e-5 (the sums run in another order than
 cuDNN's); K3 in float32 1e-5·max(1, max|plain|) (sums of up to 2304
 products in another order); bf16 1e-2 relative to max(1, max|plain|) (one
-bf16 rounding, 2^-8, on either side).
+bf16 rounding, 2^-8, on either side), the bias gradient of a bf16 input
+at the bf16 bound too (a sum of bf16 dx, as the JAX package's); the PTI
+step's gradients rtol 1e-3, atol 2e-3·max|gradient| of each tensor (cuDNN's
+convolutions sum in another order than the CPU's through the whole
+generator and LPIPS; read 5e-6 to 6.5e-4·max on an NVIDIA H100 80GB HBM3 at
+700 W); the noise weights' (each one scalar summing g·noise over C·R²
+pixels that largely cancel) as one vector, rtol 1e-3, atol 1e-2·max (read
+6e-5 to 2.8e-3·max).
 """
 
 import pytest
@@ -23,13 +34,14 @@ import torch
 
 from stylegan_directions_face_reenactment_tpu_torch.ops import fused_conv_block as k3
 from stylegan_directions_face_reenactment_tpu_torch.ops.fused_act import (
-    fused_bias_act_cuda, fused_leaky_relu, fused_leaky_relu_plain)
+    fused_bias_act_bwd_cuda, fused_bias_act_cuda, fused_leaky_relu,
+    fused_leaky_relu_bwd_plain, fused_leaky_relu_plain)
 from stylegan_directions_face_reenactment_tpu_torch.ops.main_path import (
-    fused_bias_act_calls, fused_conv_block_calls, upfirdn2d_calls)
+    fused_bias_act_calls, fused_conv_block_calls, pti_backward_calls, upfirdn2d_calls)
 from stylegan_directions_face_reenactment_tpu_torch.ops.upfirdn2d import (
-    make_kernel, upfirdn2d)
+    make_kernel, upfirdn2d, upfirdn2d_output_shape)
 from stylegan_directions_face_reenactment_tpu_torch.ops.upfirdn2d_kernel import (
-    upfirdn2d_cuda, upfirdn2d_fir)
+    upfirdn2d_backward, upfirdn2d_bwd_cuda, upfirdn2d_cuda, upfirdn2d_fir)
 
 pytestmark = pytest.mark.cuda
 DTYPES = [torch.float32, torch.bfloat16]
@@ -101,9 +113,19 @@ def test_kernels_refuse_what_they_do_not_take(card):
         upfirdn2d_cuda(x.transpose(2, 3), k, 1, (1, 1))
     with pytest.raises(TypeError):
         fused_bias_act_cuda(x.half(), torch.zeros(2, device=card))
-    with pytest.raises(NotImplementedError):
-        y = upfirdn2d_fir(x.requires_grad_(), k, 2, (2, 1))
-        y.sum().backward()
+    with pytest.raises(ValueError):
+        upfirdn2d_bwd_cuda(x, k, 3, (1, 1), (1, 2, 4, 4))
+    with pytest.raises(TypeError):
+        fused_bias_act_bwd_cuda(x, x.bfloat16())
+    with pytest.raises(ValueError):
+        fused_bias_act_bwd_cuda(x, x[:, :1].contiguous())
+    # K1's backward is the kernel too: the gradient of the skip upsample
+    y = upfirdn2d_fir(x.requires_grad_(), k, 2, (2, 1))
+    g = torch.randn_like(y)
+    before = upfirdn2d_bwd_cuda.down2_launches
+    (dx,) = torch.autograd.grad(y, x, g)
+    assert upfirdn2d_bwd_cuda.down2_launches == before + 1
+    check(dx, upfirdn2d_backward(g, k, 2, (2, 1), x.shape))
 
 
 K3_SHAPES = sorted(set(fused_conv_block_calls(16)) | set(fused_conv_block_calls(1)),
@@ -172,3 +194,105 @@ def test_fused_conv_block_refusals(card):
         k3.fused_conv_block_cuda(x.half(), args)
     with pytest.raises(ValueError, match="stage 1"):
         k3.fused_conv_block_cuda(x.bfloat16(), args)
+
+
+PTI = pti_backward_calls()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("call", PTI.upfirdn2d, ids=lambda c: c.name)
+def test_upfirdn2d_bwd_kernel_matches_plain(card, call, dtype):
+    """K1 on the gradient of each PTI-step call: up 1, down 1 for the
+    blurs, down 2 for the skip upsamples."""
+    k = make_kernel((1, 3, 3, 1), gain=4)
+    oh, ow = upfirdn2d_output_shape(call.shape[2], call.shape[3], (4, 4), up=call.up,
+                                    pad=call.pad)
+    g = torch.randn(call.shape[:2] + (oh, ow), generator=torch.Generator(device=card).manual_seed(6),
+                    device=card).to(dtype)
+    before = (upfirdn2d_bwd_cuda.launches, upfirdn2d_bwd_cuda.down2_launches)
+    got = upfirdn2d_bwd_cuda(g, k, call.up, call.pad, call.shape)
+    assert (upfirdn2d_bwd_cuda.launches, upfirdn2d_bwd_cuda.down2_launches) == (
+        before[0] + 1, before[1] + int(call.up == 2))
+    check(got, upfirdn2d_backward(g, k, call.up, call.pad, call.shape))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", sorted(set(PTI.fused_bias_act)), ids=str)
+def test_fused_bias_act_bwd_kernel_matches_plain(card, shape, dtype):
+    gen = torch.Generator(device=card).manual_seed(7)
+    g = torch.randn(shape, generator=gen, device=card).to(dtype)
+    y = fused_leaky_relu_plain(torch.randn(shape, generator=gen, device=card).to(dtype))
+    before = fused_bias_act_bwd_cuda.launches
+    got = fused_bias_act_bwd_cuda(g, y)
+    assert fused_bias_act_bwd_cuda.launches == before + 1
+    check(got, fused_leaky_relu_bwd_plain(g, y))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_kernel_autograd_matches_plain_autograd(card, dtype):
+    """Gradients through the kernels' autograd Functions against autograd
+    through the plain versions, on the card."""
+    gen = torch.Generator(device=card).manual_seed(8)
+    x = torch.randn(2, 8, 17, 17, generator=gen, device=card).to(dtype)
+    b = torch.randn(8, generator=gen, device=card)
+    k = make_kernel((1, 3, 3, 1), gain=4)
+
+    def run(f_blur, f_up, f_act):
+        xx, bb = x.clone().requires_grad_(), b.clone().requires_grad_()
+        h = f_act(f_blur(xx), bb)
+        out = f_up(h)
+        g = torch.randn(out.shape, generator=torch.Generator(device=card).manual_seed(9),
+                        device=card).to(dtype)
+        return torch.autograd.grad(out, (xx, bb), g)
+
+    launches = (upfirdn2d_bwd_cuda.launches, fused_bias_act_bwd_cuda.launches)
+    got = run(lambda t: upfirdn2d_fir(t, k, 1, (1, 1)), lambda t: upfirdn2d_fir(t, k, 2, (2, 1)),
+              fused_leaky_relu)
+    assert (upfirdn2d_bwd_cuda.launches, fused_bias_act_bwd_cuda.launches) == (
+        launches[0] + 2, launches[1] + 1)
+    want = run(lambda t: upfirdn2d(t, k, up=1, pad=(1, 1)),
+               lambda t: upfirdn2d(t, k, up=2, pad=(2, 1)), fused_leaky_relu_plain)
+    for a, w in zip(got, want):
+        check(a.to(dtype), w.to(dtype), f32_scaled=True)
+
+
+def test_pti_step_gradients_match_plain_path(card):
+    """One PTI step of the voxceleb generator (256², channel multiplier 1):
+    the gradients of the tuned parameters with K1, K2 and their backwards
+    on the card against the plain versions on the CPU, same weights."""
+    from stylegan_directions_face_reenactment_tpu_torch.pipeline.pti import (
+        pti_objective, split_tunable)
+    from stylegan_directions_face_reenactment_tpu_torch.weights import (
+        init_generator, init_lpips)
+
+    def grads(device):
+        g = init_generator(0, 256, 512, 8, 1, device=device)
+        g.requires_grad_(False)
+        tuned = split_tunable(g)
+        for p in tuned:
+            p.requires_grad_(True)
+        rs = torch.Generator().manual_seed(10)
+        code = (0.5 * torch.randn(1, 14, 512, generator=rs)).to(device)
+        real = (torch.rand(1, 256, 256, 3, generator=rs) * 2 - 1).to(device)
+        trunc = torch.randn(1, 512, generator=rs).to(device)
+        total, _, _ = pti_objective(g, code, real, init_lpips(1, device=device), trunc)
+        total.backward()
+        return float(total.detach()), [p.grad.cpu() for p in tuned]
+
+    before = (upfirdn2d_bwd_cuda.launches, upfirdn2d_bwd_cuda.down2_launches,
+              fused_bias_act_bwd_cuda.launches)
+    loss, got = grads(card)
+    after = (upfirdn2d_bwd_cuda.launches, upfirdn2d_bwd_cuda.down2_launches,
+             fused_bias_act_bwd_cuda.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (
+        len(PTI.upfirdn2d), sum(c.up == 2 for c in PTI.upfirdn2d), len(PTI.fused_bias_act))
+    want_loss, want = grads("cpu")
+    assert abs(loss - want_loss) <= 1e-4 * abs(want_loss)
+    noise = [torch.cat([t for t in grads if t.numel() == 1]) for grads in (got, want)]
+    torch.testing.assert_close(noise[0], noise[1], rtol=1e-3,
+                               atol=1e-2 * float(noise[1].abs().max()))
+    for a, w in zip(got, want):
+        if w.numel() > 1:
+            torch.testing.assert_close(a, w, rtol=1e-3, atol=2e-3 * float(w.abs().max()))

@@ -1,7 +1,7 @@
-"""Seeded S3FD and FAN weights for the port's face-model tests, in both
-packages: the port's seeded init goes through the JAX package's own
-checkpoint converters (``convert_s3fd``, ``convert_fan``), so the
-state-dict keys round-trip, and back into the port with
+"""Seeded S3FD, FAN and e4e weights for the port's tests, in both packages:
+the port's seeded init goes through the JAX package's own checkpoint
+converters (``convert_s3fd``, ``convert_fan``, ``convert_e4e_encoder``), so
+the state-dict keys round-trip, and back into the port with
 ``weights/from_jax.py``. Batch-norm statistics are randomized first, so
 the folded normalization is exercised."""
 
@@ -13,7 +13,7 @@ from stylegan_directions_face_reenactment_tpu.weights.torch_convert import (
     convert_fan, convert_s3fd)
 
 from stylegan_directions_face_reenactment_tpu_torch.weights import (
-    fan_from_jax, init_fan, init_s3fd, s3fd_from_jax)
+    fan_from_jax, init_e4e, init_fan, init_s3fd, s3fd_from_jax)
 
 
 def to_np(tree):
@@ -55,6 +55,18 @@ def s3fd_pair(seed=0, boost_head=None):
             b[-1] = 10.0
     j = to_np(convert_s3fd(m.state_dict()))
     return j, s3fd_from_jax(j, device="cpu")
+
+
+def damped_e4e(seed, image_resolution):
+    """A seeded port e4e with random batch-norm statistics and its residual
+    branches damped (each IR-SE block's last batch-norm scale × 0.3): at the
+    random init the 24 blocks grow the activations some 30,000-fold, which
+    turns last-digit differences into percent differences of the code."""
+    e = randomize_bn(init_e4e(seed, image_resolution, device="cpu"), seed + 1)
+    with torch.no_grad():
+        for blk in e.body:
+            blk.res_layer[4].weight.mul_(0.3)
+    return e
 
 
 def statics_jit(fn, *trees):
