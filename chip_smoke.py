@@ -13,11 +13,18 @@ non-zero without printing the last line:
    from ``csrc/`` with nvcc, with each kernel's registers and shared memory;
 3. kernel parity: each kernel against its plain PyTorch version on the card
    at every shape the serving paths give it (a batch of 16), float32 and
-   bf16, TF32 off;
-4. kernel timing: CUDA events over many launches at those shapes, beside the
-   plain version, one PyTorch library call computing the same function
-   where there is one, and the least time the card could take, summed over
-   one request;
+   bf16, TF32 off; K3 also at the batch-1 shapes of the source's DECA and at
+   ragged sizes, and run twice to show its split-K sums are bit-equal;
+4. kernel timing, three numbers a call at those shapes: the device time
+   (CUDA events around the replay of a CUDA graph that captured the calls,
+   so no host work sits between launches), the host µs a call (host clock
+   around un-synchronized calls) and the call time (CUDA events around
+   back-to-back calls, the pace of whichever of the two is slower); beside
+   the plain version, one PyTorch library call computing the same function
+   where there is one (the same three numbers), and the least time the card
+   could take, summed over one request; K3's per-size rows beside the cuDNN
+   composition and its device time by kernel (prologue, stage GEMMs,
+   split-K passes) from torch.profiler;
 5. slice 1, the resize path: random-init voxceleb-256 generator (channel
    multiplier 1, 8 mapping layers), A (15 → 8·512) and DECA ResNet-50 at
    224, served through ``make_reenact_fn`` for requests of 16, 16 and 5
@@ -136,8 +143,10 @@ def nvidia_smi():
 
 
 def time_ms(fn, reps=REPS):
-    """Mean ms per call on the card: CUDA events around ``reps`` calls after
-    a warm-up."""
+    """Call time, mean ms a call: CUDA events around ``reps`` back-to-back
+    calls after a warm-up. Where a call's host work exceeds its device work
+    this is the host's pace, not the kernel's: see :func:`device_ms` and
+    :func:`host_us`."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -149,6 +158,53 @@ def time_ms(fn, reps=REPS):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps=REPS):
+    """Device time, mean ms a call: CUDA events around the replay of a CUDA
+    graph that captured ``reps`` calls, so no host work sits between the
+    launches (the gaps between a graph's kernels, about a microsecond, are
+    in it)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / reps
+
+
+def host_us(fn, reps=REPS):
+    """Host µs a call: the host clock around ``reps`` calls with no
+    synchronize, once the stream is warm."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * t / reps
+
+
+def three_times(fn):
+    """(device ms, host µs, call ms) of one call."""
+    return device_ms(fn), host_us(fn), time_ms(fn)
 
 
 def max_err(got, want):
@@ -209,15 +265,16 @@ def k2_inputs(dtype, gen, with_mapping=False):
     return out
 
 
-def k3_inputs(dtype, gen):
+def k3_inputs(dtype, gen, batch=BATCH):
     """(shape, calls of that shape in one FAN pass, x, K3Args) for each K3
-    shape of the serving path: folds near 1 and 0, He-scaled weights."""
+    shape of a FAN pass over ``batch`` crops (16 on the serving path, 1 for
+    the source's DECA): folds near 1 and 0, He-scaled weights."""
     from stylegan_directions_face_reenactment_tpu_torch.ops.fused_conv_block import (
         make_k3_args)
     from stylegan_directions_face_reenactment_tpu_torch.ops.main_path import (
         fused_conv_block_calls)
     out = []
-    for shape, n in sorted(Counter(fused_conv_block_calls(BATCH)).items(),
+    for shape, n in sorted(Counter(fused_conv_block_calls(batch)).items(),
                            key=lambda kv: -kv[0][2]):
         cs = ((256, 128), (128, 64), (64, 64))
         inv = [1 + 0.1 * torch.randn(ci, generator=gen, device="cuda") for ci, _ in cs]
@@ -249,7 +306,7 @@ def phase_parity():
     from stylegan_directions_face_reenactment_tpu_torch.ops.upfirdn2d_kernel import (
         upfirdn2d_cuda)
     from stylegan_directions_face_reenactment_tpu_torch.ops.fused_conv_block import (
-        fused_conv_block_cuda, fused_conv_block_plain)
+        fused_conv_block_cuda, fused_conv_block_plain, schedule as fcb_schedule)
     k = make_kernel((1, 3, 3, 1), gain=4)
     worst = {"upfirdn2d": 0.0, "fused_bias_act": 0.0, "fused_conv_block": 0.0}
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -280,16 +337,25 @@ def phase_parity():
             need(err <= lim, f"fused_bias_act {shape} {dtype} disagrees")
             if dtype == torch.float32:
                 worst["fused_bias_act"] = max(worst["fused_bias_act"], err)
-        for shape, _, x, args in k3_inputs(dtype, gen):
+        k3_cases = [c for b in (BATCH, 1) for c in k3_inputs(dtype, gen, b)]
+        for shape in ((2, 256, 5, 7), (3, 256, 9, 33), (3, 256, 1, 1)):   # ragged tiles
+            k3_cases.append((shape, 0, torch.randn(shape, generator=gen, device="cuda").to(dtype),
+                             k3_cases[0][3]))
+        for shape, _, x, args in k3_cases:
             got = fused_conv_block_cuda(x, args)
             want = fused_conv_block_plain(x, args)
+            again = fused_conv_block_cuda(x, args)
             torch.cuda.synchronize()
             err, scale = max_err(got, want), max(1.0, float(want.float().abs().max()))
             lim = K3_F32_TOL * scale if dtype == torch.float32 else BF16_TOL * scale
-            print(f"[parity] fused_conv_block {shape} {str(dtype)[6:]}: max abs err "
-                  f"{err:.3g} (limit {lim:.3g}; max|plain| {scale:.3g})")
+            same = torch.equal(got, again)
+            print(f"[parity] fused_conv_block {shape} {str(dtype)[6:]} (splits "
+                  f"{fcb_schedule(shape[0], shape[2], shape[3], dtype).splits}): max abs err "
+                  f"{err:.3g} (limit {lim:.3g}; max|plain| {scale:.3g}); a second run "
+                  f"bit-equal: {same}")
             need(got.shape == want.shape and err <= lim,
                  f"fused_conv_block {shape} {dtype} disagrees with its plain version")
+            need(same, f"fused_conv_block {shape} {dtype}: two runs differ")
             if dtype == torch.float32:
                 worst["fused_conv_block"] = max(worst["fused_conv_block"], err)
     return worst
@@ -311,8 +377,7 @@ def phase_timing(card_name):
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         tag = str(dtype)[6:]
-        t = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-             "bytes": 0, "ops": 0}
+        t = {}
         for call, x in k1_inputs(dtype, gen):
             oh, ow = upfirdn2d_output_shape(x.shape[2], x.shape[3], (4, 4), up=call.up,
                                             pad=call.pad)
@@ -320,63 +385,102 @@ def phase_timing(card_name):
             nbytes = (x.numel() + n_out) * x.element_size()
             ops = n_out * 2 * 16 // (call.up * call.up)   # taps that meet a sample
             bound = 1e3 * max(nbytes / bw, ops / flops)
-            ms = time_ms(lambda: upfirdn2d_cuda(x, k, call.up, call.pad))
+            ms, host, call_ms = three_times(lambda: upfirdn2d_cuda(x, k, call.up, call.pad))
             plain = time_ms(lambda: upfirdn2d(x, k, up=call.up, pad=call.pad))
-            lib = time_ms(library_k1(x, k, call))
-            print(f"[timing] upfirdn2d {call.name} {tuple(x.shape)} {tag}: kernel "
-                  f"{ms:.4f} ms, plain {plain:.4f} ms, library {lib:.4f} ms, bound "
-                  f"{bound:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s)")
-            t["ms"] += ms
-            t["plain_ms"] += plain
-            t["library_ms"] += lib
-            t["bound_ms"] += bound
-            t["bytes"] += nbytes
-            t["ops"] += ops
+            lib, lib_host, lib_call = three_times(library_k1(x, k, call))
+            print(f"[timing] upfirdn2d {call.name} {tuple(x.shape)} {tag}: kernel device "
+                  f"{ms:.4f} ms, host {host:.2f} us, call {call_ms:.4f} ms; plain {plain:.4f} "
+                  f"ms; library device {lib:.4f} ms, host {lib_host:.2f} us, call "
+                  f"{lib_call:.4f} ms; bound {bound:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s)")
+            add(t, ms=ms, host_us=host, call_ms=call_ms, plain_ms=plain, library_ms=lib,
+                library_host_us=lib_host, library_call_ms=lib_call, bound_ms=bound,
+                bytes=nbytes, ops=ops)
         out[("upfirdn2d", tag)] = t
-        t = {"ms": 0.0, "plain_ms": 0.0, "library_ms": None, "bound_ms": 0.0,
-             "bytes": 0, "ops": 0}
+        t = {"library_ms": None}
         for shape, x, b in k2_inputs(dtype, gen):
             nbytes = 2 * x.numel() * x.element_size() + b.numel() * x.element_size()
             ops = 3 * x.numel()
             bound = 1e3 * max(nbytes / bw, ops / flops)
-            ms = time_ms(lambda: fused_bias_act_cuda(x, b))
+            ms, host, call_ms = three_times(lambda: fused_bias_act_cuda(x, b))
             plain = time_ms(lambda: fused_leaky_relu_plain(x, b))
-            print(f"[timing] fused_bias_act {shape} {tag}: kernel {ms:.4f} ms, plain "
-                  f"{plain:.4f} ms, bound {bound:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s)")
-            t["ms"] += ms
-            t["plain_ms"] += plain
-            t["bound_ms"] += bound
-            t["bytes"] += nbytes
-            t["ops"] += ops
+            print(f"[timing] fused_bias_act {shape} {tag}: kernel device {ms:.4f} ms, host "
+                  f"{host:.2f} us, call {call_ms:.4f} ms; plain {plain:.4f} ms; bound "
+                  f"{bound:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s)")
+            add(t, ms=ms, host_us=host, call_ms=call_ms, plain_ms=plain, bound_ms=bound,
+                bytes=nbytes, ops=ops)
         out[("fused_bias_act", tag)] = t
         # K3: every call of the two FAN passes of a request
         rate = flops if dtype == torch.float32 else bf16_flops
-        t = {"ms": 0.0, "plain_ms": 0.0, "library_ms": None, "bound_ms": 0.0,
-             "bytes": 0, "ops": 0}
+        # the plain version on the card is the cuDNN composition (three
+        # convolutions and the elementwise folds): its device time is the
+        # per-size yardstick, though no single PyTorch call computes K3
+        t = {"library_ms": None}
         for shape, n, x, args in k3_inputs(dtype, gen):
             calls = 2 * n
             weights = sum(w.numel() for w in args.wk) + 2 * (256 + 128 + 64)
             nbytes = (2 * x.numel() + weights) * x.element_size()
             ops = K3_FLOP_PER_PIXEL * shape[0] * shape[2] * shape[3]
             bound = 1e3 * max(nbytes / bw, ops / rate)
-            ms = time_ms(lambda: fused_conv_block_cuda(x, args))
-            plain = time_ms(lambda: fused_conv_block_plain(x, args))
-            print(f"[timing] fused_conv_block {shape} {tag} x{calls} a request: kernel "
-                  f"{ms:.4f} ms ({ops / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, "
-                  f"bound {bound:.4f} ms (operations at {rate / 1e12:.0f} TFLOP/s)")
-            t["ms"] += calls * ms
-            t["plain_ms"] += calls * plain
-            t["bound_ms"] += calls * bound
-            t["bytes"] += calls * nbytes
-            t["ops"] += calls * ops
+            ms, host, call_ms = three_times(lambda: fused_conv_block_cuda(x, args))
+            plain, plain_host, plain_call = three_times(lambda: fused_conv_block_plain(x, args))
+            print(f"[timing] fused_conv_block {shape} {tag} x{calls} a request: kernel device "
+                  f"{ms:.4f} ms ({ops / ms / 1e9:.1f} TFLOP/s), host {host:.2f} us, call "
+                  f"{call_ms:.4f} ms; cuDNN composition device {plain:.4f} ms, host "
+                  f"{plain_host:.2f} us, call {plain_call:.4f} ms; bound {bound:.4f} ms "
+                  f"(operations at {rate / 1e12:.0f} TFLOP/s); kernel/composition "
+                  f"{ms / plain:.3f}")
+            add(t, ms=calls * ms, host_us=calls * host, call_ms=calls * call_ms,
+                plain_ms=calls * plain, plain_call_ms=calls * plain_call,
+                bound_ms=calls * bound, bytes=calls * nbytes, ops=calls * ops)
         out[("fused_conv_block", tag)] = t
     for (name, tag), t in out.items():
-        lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
-        print(f"[timing] {name} per request of {BATCH} frames, {tag}: kernel "
-              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library {lib}, "
-              f"bound {t['bound_ms']:.4f} ms ({t['bytes'] / 1e9:.3f} GB over "
-              f"{bw / 1e12:.2f} TB/s; {t['ops'] / 1e12:.3f} TFLOP)")
+        print_sums(f"[timing] {name} per request of {BATCH} frames, {tag}", t, bw)
     return out
+
+
+def k3_breakdown():
+    """K3's device time a call by kernel (the prologue, the stage GEMMs, the
+    split-K reduce passes) at each size of the serving path, from
+    torch.profiler's device events over 5 calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from stylegan_directions_face_reenactment_tpu_torch.ops.fused_conv_block import (
+        fused_conv_block_cuda)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape, _, x, args in k3_inputs(dtype, gen):
+            fused_conv_block_cuda(x, args)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    fused_conv_block_cuda(x, args)
+                torch.cuda.synchronize()
+            parts = {}
+            for e in prof.key_averages():
+                dev = getattr(e, "self_device_time_total", None)
+                if dev is None:
+                    dev = getattr(e, "self_cuda_time_total", 0)
+                if e.device_type == DeviceType.CUDA and "fcb_" in e.key:
+                    kind = e.key.split("fcb_")[1].split("<")[0].split("(")[0].split("I")[0]
+                    parts[kind] = parts.get(kind, 0.0) + dev / 5
+            print(f"[timing] fused_conv_block {shape} {str(dtype)[6:]} by kernel, us a call: "
+                  + ", ".join(f"{k} {v:.1f}" for k, v in sorted(parts.items())))
+
+
+def add(t, **values):
+    """Add each value into the sums ``t``."""
+    for key, v in values.items():
+        t[key] = t.get(key, 0) + v
+
+
+def print_sums(label, t, bw):
+    lib = ("none" if t.get("library_ms") is None else
+           f"device {t['library_ms']:.4f} ms, host {t['library_host_us']:.2f} us, call "
+           f"{t['library_call_ms']:.4f} ms")
+    print(f"{label}: kernel device {t['ms']:.4f} ms, host {t['host_us']:.2f} us, call "
+          f"{t['call_ms']:.4f} ms; plain {t['plain_ms']:.4f} ms; library {lib}; bound "
+          f"{t['bound_ms']:.4f} ms ({t['bytes'] / 1e9:.4f} GB over {bw / 1e12:.2f} TB/s; "
+          f"{t['ops'] / 1e12:.4f} TFLOP)")
 
 
 def k1_bwd_inputs(dtype, gen):
@@ -470,8 +574,7 @@ def phase_timing_bwd(card_name):
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         tag = str(dtype)[6:]
-        t = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-             "bytes": 0, "ops": 0}
+        t = {}
         for call, g in k1_bwd_inputs(dtype, gen):
             n_out = 1
             for d in call.shape:
@@ -479,35 +582,33 @@ def phase_timing_bwd(card_name):
             nbytes = (g.numel() + n_out) * g.element_size()
             ops = n_out * 2 * 16       # up 1: every tap meets a sample
             bound = 1e3 * max(nbytes / bw, ops / flops)
-            ms = time_ms(lambda: upfirdn2d_bwd_cuda(g, k, call.up, call.pad, call.shape))
+            ms, host, call_ms = three_times(
+                lambda: upfirdn2d_bwd_cuda(g, k, call.up, call.pad, call.shape))
             plain = time_ms(lambda: upfirdn2d_backward(g, k, call.up, call.pad, call.shape))
-            lib = time_ms(library_k1_bwd(g, k, call))
+            lib, lib_host, lib_call = three_times(library_k1_bwd(g, k, call))
             print(f"[timing] upfirdn2d_bwd {call.name} (down {call.up}) {tuple(g.shape)} {tag}: "
-                  f"kernel {ms:.4f} ms, plain {plain:.4f} ms, library {lib:.4f} ms, bound "
-                  f"{bound:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s)")
-            for key, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
-                           ("bound_ms", bound), ("bytes", nbytes), ("ops", ops)):
-                t[key] += v
+                  f"kernel device {ms:.4f} ms, host {host:.2f} us, call {call_ms:.4f} ms; plain "
+                  f"{plain:.4f} ms; library device {lib:.4f} ms, host {lib_host:.2f} us, call "
+                  f"{lib_call:.4f} ms; bound {bound:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s)")
+            add(t, ms=ms, host_us=host, call_ms=call_ms, plain_ms=plain, library_ms=lib,
+                library_host_us=lib_host, library_call_ms=lib_call, bound_ms=bound,
+                bytes=nbytes, ops=ops)
         out[("upfirdn2d_bwd", tag)] = t
-        t = {"ms": 0.0, "plain_ms": 0.0, "library_ms": None, "bound_ms": 0.0,
-             "bytes": 0, "ops": 0}
+        t = {"library_ms": None}
         for shape, g, y in k2_bwd_inputs(dtype, gen):
             nbytes = 3 * g.numel() * g.element_size()
             ops = 2 * g.numel()         # a compare and a multiply
             bound = 1e3 * max(nbytes / bw, ops / flops)
-            ms = time_ms(lambda: fused_bias_act_bwd_cuda(g, y))
+            ms, host, call_ms = three_times(lambda: fused_bias_act_bwd_cuda(g, y))
             plain = time_ms(lambda: fused_leaky_relu_bwd_plain(g, y))
-            print(f"[timing] fused_bias_act_bwd {shape} {tag}: kernel {ms:.4f} ms, plain "
-                  f"{plain:.4f} ms, bound {bound:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s)")
-            for key, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", bound),
-                           ("bytes", nbytes), ("ops", ops)):
-                t[key] += v
+            print(f"[timing] fused_bias_act_bwd {shape} {tag}: kernel device {ms:.4f} ms, "
+                  f"host {host:.2f} us, call {call_ms:.4f} ms; plain {plain:.4f} ms; bound "
+                  f"{bound:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s)")
+            add(t, ms=ms, host_us=host, call_ms=call_ms, plain_ms=plain, bound_ms=bound,
+                bytes=nbytes, ops=ops)
         out[("fused_bias_act_bwd", tag)] = t
     for (name, tag), t in out.items():
-        lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
-        print(f"[timing] {name} per PTI step, {tag}: kernel {t['ms']:.4f} ms, plain "
-              f"{t['plain_ms']:.4f} ms, library {lib}, bound {t['bound_ms']:.4f} ms "
-              f"({t['bytes'] / 1e9:.4f} GB over {bw / 1e12:.2f} TB/s)")
+        print_sums(f"[timing] {name} per PTI step, {tag}", t, bw)
     return out
 
 
@@ -661,7 +762,7 @@ def phase_slice():
 
 def _category(kernel_name):
     n = kernel_name.lower()
-    if "conv3x3_stage" in n:
+    if "fcb_" in n:
         return "K3 fused conv block"
     if "upfirdn2d_kernel" in n:
         return "K1 upfirdn2d"
@@ -1345,6 +1446,7 @@ def main():
     worst = phase_parity()
     worst.update(phase_parity_bwd())
     timing = phase_timing(name)
+    k3_breakdown()
     timing.update(phase_timing_bwd(name))
     results, launches = phase_slice()
     results2, launches2 = phase_slice2()
@@ -1386,6 +1488,7 @@ def main():
         kernels.append({
             "name": name_k, "route": route, "source": source, "replaces": replaces,
             "launches": n, "max_abs_err": worst[name_k], "ms": t["ms"],
+            "host_us": t["host_us"], "call_ms": t["call_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": "bytes" if t["bytes"] / card_rates(name)[0]
                         >= t["ops"] / card_rates(name)[1] else "operations",

@@ -18,7 +18,13 @@ blocks a module, 56 a FAN pass, 112 a request of the fused default path
 
 Bound on an H100: operations, 811,008 FLOP a block-pixel against 2 KB of
 f32 activations (about 400 FLOP a byte). ``csrc/fused_conv_block.cu`` says
-what its design does about that.
+what its design does about that: a prologue pass writes the first stage's
+activation channels-innermost, and each stage is an implicit GEMM (``wgmma``
+in bf16, register-blocked FMAs in float32) over the pixels of all images
+whose epilogue writes its slice of ``out`` and the next stage's activation.
+:func:`schedule` is the table that splits a small map's K loop across
+blocks; :func:`scratch_layout` places the activations and the split-K
+partials in one scratch buffer that the wrapper allocates.
 
 The gate: :func:`fused_convblock_enabled` takes every channels-equal
 256-channel block on a CUDA tensor, at every size from 64² down to 4², in
@@ -29,8 +35,9 @@ of the TPU and do not carry over. CPU tensors take the plain version.
   → ``F.conv2d`` three times, cat, + x); :func:`fused_conv_block` takes it
   only for CPU tensors.
 * :func:`fused_conv_block_cuda` launches the kernel and counts its launches
-  in ``fused_conv_block_cuda.launches`` (one a block; the kernel runs as
-  three stage launches).
+  in ``fused_conv_block_cuda.launches`` (one a block; the kernel runs as a
+  prologue and three stage launches, each split stage with its reduce
+  pass).
 * The kernel is forward only and serves under no-grad: on a CUDA tensor
   that needs a gradient :func:`fused_conv_block` raises. The JAX package's
   custom VJP recomputes through the plain composition; that wrapper comes
@@ -39,6 +46,7 @@ of the TPU and do not carry over. CPU tensors take the plain version.
 
 from __future__ import annotations
 
+import functools
 import weakref
 from typing import NamedTuple, Tuple
 
@@ -71,17 +79,89 @@ def fused_convblock_enabled(p, x: torch.Tensor) -> bool:
 
 def kernel_weight(w: torch.Tensor) -> torch.Tensor:
     """An OIHW 3×3 weight in the kernel's layout: float32 (cin, 3, 3, cout),
-    output channels innermost for the CUDA-core stage; bf16 (cin / 16, 9,
-    cout, 16), the tensor-core stage's 16-channel chunks, each a row of 16
-    input channels per output channel and tap."""
+    a K step's 16 input channels × 64 output channels as rows of contiguous
+    output channels; bf16 (9, cin / 64, cout, 64), one (tap, 64-channel
+    chunk) slab a K step, each output channel's 64 input channels one
+    128-byte row (``wgmma``'s K-major B operand)."""
     if w.dtype == torch.bfloat16:
         cout, cin = w.shape[:2]
-        return w.reshape(cout, cin // 16, 16, 9).permute(1, 3, 0, 2).contiguous()
+        return w.reshape(cout, cin // 64, 64, 9).permute(3, 1, 0, 2).contiguous()
     return w.permute(1, 2, 3, 0).contiguous()
 
 
 def _kernel_weight_shape(cin: int, cout: int, dtype: torch.dtype) -> Tuple[int, ...]:
-    return (cin // 16, 9, cout, 16) if dtype == torch.bfloat16 else (cin, 3, 3, cout)
+    return (9, cin // 64, cout, 64) if dtype == torch.bfloat16 else (cin, 3, 3, cout)
+
+
+# --- the schedule table ------------------------------------------------------
+
+STAGES = ((256, 128), (128, 64), (64, 64))   # (cin, cout) of the three stages
+TILE_M = 128                                 # pixels of a block tile
+SMS = 132                                    # streaming multiprocessors of an H100 SXM
+MAX_SPLITS = 36                              # more partials cost more than they spread
+
+
+def target_blocks(dtype: torch.dtype) -> int:
+    """The blocks a stage with few tiles is split to put on the card: one an
+    SM in bf16, two in float32 (its 128-thread blocks fit three an SM, but
+    more partials cost more than the third gains). Chosen from split sweeps
+    on the H100 (``tune_k3_splits.py``)."""
+    return SMS if dtype == torch.bfloat16 else 2 * SMS
+
+
+def full_wave(dtype: torch.dtype) -> int:
+    """Tiles from which a stage runs unsplit: three quarters of its target."""
+    return 3 * target_blocks(dtype) // 4
+
+
+def tile_n(cout: int, dtype: torch.dtype) -> int:
+    """Output channels of a block tile: 128 for bf16's 128-channel first
+    stage (``wgmma`` m64n128), 64 otherwise."""
+    return 128 if dtype == torch.bfloat16 and cout == 128 else 64
+
+
+def k_step_channels(dtype: torch.dtype) -> int:
+    """Input channels of one K step (a K step is one tap of that many
+    channels): 64 in bf16 (a 128-byte ``wgmma`` row), 16 in float32."""
+    return 64 if dtype == torch.bfloat16 else 16
+
+
+class K3Schedule(NamedTuple):
+    """How K3 runs on a (batch, 256, h, w) input, per stage: the K steps a
+    block sums (``kchunk``; all of them when unsplit), the splits and the
+    blocks; and the f32 elements of split-K partials the largest split
+    stage needs (0 when no stage splits)."""
+    kchunk: Tuple[int, int, int]
+    splits: Tuple[int, int, int]
+    blocks: Tuple[int, int, int]
+    workspace: int
+
+
+@functools.lru_cache(maxsize=None)
+def schedule(batch: int, h: int, w: int, dtype: torch.dtype) -> K3Schedule:
+    """The schedule table. M = batch·h·w pixels in tiles of 128. A stage
+    whose tiles reach :func:`full_wave` runs unsplit; a smaller one splits
+    its K steps into chunks of ``ksteps // ceil(target / tiles)`` (at least
+    one, at most ``MAX_SPLITS`` splits), so that it puts about
+    :func:`target_blocks` blocks on the card, and its partials are summed by
+    a second pass in split order."""
+    m = batch * h * w
+    m_tiles = -(-m // TILE_M)
+    kchunk, splits, blocks, ws = [], [], [], 0
+    for cin, cout in STAGES:
+        tiles = m_tiles * (cout // tile_n(cout, dtype))
+        ksteps = 9 * cin // k_step_channels(dtype)
+        if tiles >= full_wave(dtype):
+            chunk = ksteps
+        else:
+            chunk = max(-(-ksteps // MAX_SPLITS), ksteps // -(-target_blocks(dtype) // tiles), 1)
+        n_split = -(-ksteps // chunk)
+        kchunk.append(chunk)
+        splits.append(n_split)
+        blocks.append(tiles * n_split)
+        if n_split > 1:
+            ws = max(ws, n_split * m * cout)
+    return K3Schedule(tuple(kchunk), tuple(splits), tuple(blocks), ws)
 
 
 def make_k3_args(inv, off, w, dtype: torch.dtype) -> K3Args:
@@ -150,18 +230,66 @@ def _check(x: torch.Tensor, args: K3Args) -> None:
                                  f"on {t.device}")
 
 
-def fused_conv_block_cuda(x: torch.Tensor, args: K3Args) -> torch.Tensor:
-    """Launch K3 on a contiguous (B, 256, H, W) CUDA tensor (f32 or bf16)."""
+def scratch_layout(batch: int, h: int, w: int, dtype: torch.dtype) -> Tuple[int, int, int]:
+    """Byte offsets in K3's one scratch buffer of the NHWC activations
+    A1 (then A3) and A2 and of the split-K partials, and its size:
+    ``(act_b, ws, total)`` (A1 at 0), each part 256-byte aligned."""
+    m, es = batch * h * w, torch.empty((), dtype=dtype).element_size()
+
+    def up(n):
+        return -(-n // 256) * 256
+    act_b = up(m * 256 * es)
+    ws = act_b + up(m * 128 * es)
+    return act_b, ws, ws + 4 * schedule(batch, h, w, dtype).workspace
+
+
+class _Launch(NamedTuple):
+    """A checked K3 launch for one (args, input shape, dtype, device): the C
+    entry point, the weight and fold pointers, the scratch layout and the
+    schedule's K steps a block. ``args`` is kept so that its id stays
+    unique while the entry lives."""
+    args: K3Args
+    fn: object
+    ptrs: Tuple[int, ...]
+    layout: Tuple[int, int, int]
+    kchunk: Tuple[int, int, int]
+
+
+_launches: dict = {}
+
+
+def _launch_for(x: torch.Tensor, args: K3Args) -> _Launch:
+    key = (id(args), x.shape, x.dtype, x.device)
+    hit = _launches.get(key)
+    if hit is not None and hit.args is args:
+        return hit
     _check(x, args)
     b, _, h, w = x.shape
-    out = torch.empty_like(x)
-    scratch = torch.empty((b, 64, h, w), dtype=x.dtype, device=x.device)
     ptrs = []
     for k in range(3):
         ptrs += [args.inv[k].data_ptr(), args.off[k].data_ptr(), args.wk[k].data_ptr()]
-    fn = getattr(load_library(), _ENTRY[x.dtype])
-    status = fn(x.data_ptr(), *ptrs, out.data_ptr(), scratch.data_ptr(), b, h, w,
-                torch.cuda.current_stream(x.device).cuda_stream)
+    if len(_launches) >= 1024:     # args of blocks whose weights changed
+        _launches.clear()
+    hit = _launches[key] = _Launch(args, getattr(load_library(), _ENTRY[x.dtype]),
+                                   tuple(ptrs), scratch_layout(b, h, w, x.dtype),
+                                   schedule(b, h, w, x.dtype).kchunk)
+    return hit
+
+
+def fused_conv_block_cuda(x: torch.Tensor, args: K3Args) -> torch.Tensor:
+    """Launch K3 on a contiguous (B, 256, H, W) CUDA tensor (f32 or bf16).
+    The checks of ``args`` run on the first call of a shape; a call then
+    allocates the output and the scratch and makes one C call."""
+    if not x.is_contiguous():
+        raise ValueError("fused_conv_block_cuda takes a contiguous NCHW tensor")
+    run = _launch_for(x, args)
+    b, _, h, w = x.shape
+    out = torch.empty_like(x)
+    act_b, ws, total = run.layout
+    scratch = torch.empty(total, dtype=torch.uint8, device=x.device)
+    base = scratch.data_ptr()
+    status = run.fn(x.data_ptr(), *run.ptrs, out.data_ptr(), base, base + act_b, base + ws,
+                    b, h, w, *run.kchunk, torch._C._cuda_getCurrentRawStream(x.device.index))
     check(status, "fused_conv_block_cuda")
     fused_conv_block_cuda.launches += 1
     return out

@@ -35,14 +35,13 @@ _I64 = ctypes.c_int64
 _F = ctypes.c_float
 # C entry points and their argument types; each returns cudaGetLastError().
 SIGNATURES = {
-    "upfirdn2d_f32": (_P, _P) + (_I,) * 11 + (_P, _P),
-    "upfirdn2d_bf16": (_P, _P) + (_I,) * 11 + (_P, _P),
+    "upfirdn2d_run": (_P, _P, _P, _P),   # (&K1Params, x, y, stream)
     "fused_bias_act_f32": (_P, _P, _P, _I64, _I, _I64, _F, _F, _P),
     "fused_bias_act_bf16": (_P, _P, _P, _I64, _I, _I64, _F, _F, _P),
     "fused_bias_act_bwd_f32": (_P, _P, _P, _I64, _F, _F, _P),
     "fused_bias_act_bwd_bf16": (_P, _P, _P, _I64, _F, _F, _P),
-    "fused_conv_block_f32": (_P,) * 12 + (_I, _I, _I, _P),
-    "fused_conv_block_bf16": (_P,) * 12 + (_I, _I, _I, _P),
+    "fused_conv_block_f32": (_P,) * 14 + (_I,) * 6 + (_P,),
+    "fused_conv_block_bf16": (_P,) * 14 + (_I,) * 6 + (_P,),
 }
 
 

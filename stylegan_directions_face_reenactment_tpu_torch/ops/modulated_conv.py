@@ -22,8 +22,9 @@ Weights are (out, in, kh, kw). The JAX HWIO weight, flipped and run with
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -31,6 +32,15 @@ import torch.nn.functional as F
 from .upfirdn2d import blur, make_kernel
 
 DEFAULT_BLUR = (1, 3, 3, 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _blur_taps(blur_kernel: Tuple[int, ...], gain: float) -> torch.Tensor:
+    """The blur's taps, made once per (taps, gain): the same tensor every
+    call, so K1's launch plan is found without converting the taps. Made
+    outside inference mode, so that a later call with grad on may save it."""
+    with torch.inference_mode(False):
+        return make_kernel(blur_kernel, gain=gain)
 
 
 def modulation_demod(weight: torch.Tensor, style: torch.Tensor,
@@ -71,11 +81,11 @@ def modulated_conv2d(x: torch.Tensor, weight: torch.Tensor, style: torch.Tensor,
         p = (len(blur_kernel) - factor) - (kh - 1)
         pad0 = (p + 1) // 2 + factor - 1
         pad1 = p // 2 + 1
-        out = blur(out, make_kernel(blur_kernel, gain=factor ** 2), (pad0, pad1))
+        out = blur(out, _blur_taps(tuple(blur_kernel), factor ** 2), (pad0, pad1))
     elif downsample:
         factor = 2
         p = (len(blur_kernel) - factor) + (kh - 1)
-        xm = blur(xm, make_kernel(blur_kernel), ((p + 1) // 2, p // 2))
+        xm = blur(xm, _blur_taps(tuple(blur_kernel), 1), ((p + 1) // 2, p // 2))
         out = F.conv2d(xm, w, stride=factor)
     else:
         out = F.conv2d(xm, w, padding=kh // 2)

@@ -200,13 +200,13 @@ def test_state_dict_keeps_the_reference_key_layout(fans):
 
 def test_kernel_weight_layouts():
     """K3's packed weights hold w[co, ci, ky, kx] at (ci, ky, kx, co) in
-    float32 and at (ci // 16, 3·ky + kx, co, ci % 16) in bf16."""
+    float32 and at (3·ky + kx, ci // 64, co, ci % 64) in bf16."""
     w = torch.randn(64, 128, 3, 3)
     f = k3.kernel_weight(w)
     assert f.shape == (128, 3, 3, 64) and f.is_contiguous()
     assert f[37, 2, 1, 5] == w[5, 37, 2, 1]
     wb = w.bfloat16()
     b = k3.kernel_weight(wb)
-    assert b.shape == (8, 9, 64, 16) and b.is_contiguous()
-    for co, ci, ky, kx in [(5, 37, 2, 1), (63, 127, 0, 0), (0, 16, 1, 2)]:
-        assert b[ci // 16, 3 * ky + kx, co, ci % 16] == wb[co, ci, ky, kx]
+    assert b.shape == (9, 2, 64, 64) and b.is_contiguous()
+    for co, ci, ky, kx in [(5, 37, 2, 1), (63, 127, 0, 0), (0, 64, 1, 2)]:
+        assert b[3 * ky + kx, ci // 64, co, ci % 64] == wb[co, ci, ky, kx]

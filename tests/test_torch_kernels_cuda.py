@@ -16,8 +16,10 @@ Run them on the card with:
 (``--noconftest``: ``tests/conftest.py`` sets JAX up, and a machine for
 the port need not have JAX.)
 
-Tolerances: float32 atol 1e-5 (the sums run in another order than
-cuDNN's); K3 in float32 1e-5·max(1, max|plain|) (sums of up to 2304
+Tolerances: K1 and its backward at the serving and PTI shapes and the odd
+sizes, bit for bit (each output sums its taps in the plain version's
+order; dyadic taps); other float32 atol 1e-5 (the sums run in another
+order than cuDNN's); K3 in float32 1e-5·max(1, max|plain|) (sums of up to 2304
 products in another order); bf16 1e-2 relative to max(1, max|plain|) (one
 bf16 rounding, 2^-8, on either side), the bias gradient of a bf16 input
 at the bf16 bound too (a sum of bf16 dx, as the JAX package's); the PTI
@@ -56,6 +58,12 @@ def card():
     return torch.device("cuda")
 
 
+def exact(got, want):
+    """Bit for bit: K1 sums each output's taps in the plain version's order."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert torch.equal(got, want), float((got.float() - want.float()).abs().max())
+
+
 def check(got, want, f32_scaled=False):
     assert got.shape == want.shape and got.dtype == want.dtype
     err = float((got.float() - want.float()).abs().max())
@@ -75,8 +83,24 @@ def test_upfirdn2d_kernel_matches_plain(card, call, dtype):
     before = upfirdn2d_cuda.launches
     got = upfirdn2d_fir(x, k, call.up, call.pad)
     assert upfirdn2d_cuda.launches == before + 1
-    check(got, upfirdn2d(x, k, up=call.up, pad=call.pad))
+    exact(got, upfirdn2d(x, k, up=call.up, pad=call.pad))
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_upfirdn2d_second_call_reuses_its_plan(card, dtype):
+    """A shape's launch plan is made on its first call and found on the
+    next; another shape gets its own."""
+    from stylegan_directions_face_reenactment_tpu_torch.ops import upfirdn2d_kernel as k1
+    k = make_kernel((1, 3, 3, 1), gain=4)
+    x = torch.randn(2, 3, 11, 11, device=card).to(dtype)
+    upfirdn2d_cuda(x, k, 2, (2, 1))
+    n, plan = len(k1._plans), k1.plan_for(x, k, 2, 1, (2, 1), "t")
+    y = upfirdn2d_cuda(x.clone(), k, 2, (2, 1))
+    assert len(k1._plans) == n and k1.plan_for(x, k, 2, 1, (2, 1), "t") is plan
+    assert tuple(y.shape) == plan.out_shape
+    upfirdn2d_cuda(torch.randn(2, 3, 12, 11, device=card).to(dtype), k, 2, (2, 1))
+    assert len(k1._plans) == n + 1
 
 
 @pytest.mark.parametrize("up,pad,taps", [(1, (2, 2), (1, 3, 3, 1)),
@@ -86,6 +110,26 @@ def test_upfirdn2d_kernel_odd_pads(card, up, pad, taps):
     x = torch.randn(2, 5, 13, 11, device=card)
     k = make_kernel(taps, gain=up ** 2)
     check(upfirdn2d_cuda(x, k, up, pad), upfirdn2d(x, k, up=up, pad=pad))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,up,pad", [((1, 3, 5, 9), 2, (2, 1)), ((3, 7, 31, 30), 1, (1, 1)),
+                                          ((1, 1, 1, 1), 2, (2, 1)), ((2, 4, 66, 65), 1, (2, 2)),
+                                          ((1, 2, 7, 5), 1, (1, 1, 2, 0))], ids=str)
+def test_upfirdn2d_kernel_odd_sizes(card, shape, up, pad, dtype):
+    """Planes whose rows are not 4-aligned or fill part of a block, forward
+    and backward (down 2 where up is 2), bit for bit; inputs in eighths,
+    so every sum is exact in any order."""
+    k = make_kernel((1, 3, 3, 1), gain=4)
+    gen = torch.Generator(device=card).manual_seed(11)
+
+    def eighths(s):
+        return (torch.randint(-64, 65, s, generator=gen, device=card) / 8).to(dtype)
+    x = eighths(shape)
+    y = upfirdn2d_cuda(x, k, up, pad)
+    exact(y, upfirdn2d(x, k, up=up, pad=pad))
+    g = eighths(y.shape)
+    exact(upfirdn2d_bwd_cuda(g, k, up, pad, shape), upfirdn2d_backward(g, k, up, pad, shape))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -158,13 +202,25 @@ def test_fused_conv_block_kernel_matches_plain(card, shape, dtype):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(2, 256, 5, 7), (1, 256, 9, 33), (3, 256, 1, 1)], ids=str)
 def test_fused_conv_block_kernel_partial_tiles(card, shape, dtype):
-    """Sizes that leave the 8×16 pixel tiles partly empty, with the halo and
-    the residual epilogue at their edges."""
+    """Sizes that leave the 128-pixel tiles partly empty and tiles that
+    span images, with the halo at their edges and the K loop split."""
     args = _k3_args(card, dtype, seed=4)
     x = torch.randn(shape, generator=torch.Generator(device=card).manual_seed(5),
                     device=card).to(dtype)
     check(k3.fused_conv_block_cuda(x, args), k3.fused_conv_block_plain(x, args),
           f32_scaled=True)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(16, 256, 4, 4), (16, 256, 16, 16), (1, 256, 64, 64),
+                                   (16, 256, 64, 64)], ids=str)
+def test_fused_conv_block_runs_are_bit_equal(card, shape, dtype):
+    """The split K loop's partials are summed in a fixed order (no atomics),
+    so two runs give the same bits."""
+    args = _k3_args(card, dtype, seed=6)
+    x = torch.randn(shape, generator=torch.Generator(device=card).manual_seed(7),
+                    device=card).to(dtype)
+    assert torch.equal(k3.fused_conv_block_cuda(x, args), k3.fused_conv_block_cuda(x, args))
 
 
 def test_fused_conv_block_refuses_grad(card):
@@ -213,7 +269,7 @@ def test_upfirdn2d_bwd_kernel_matches_plain(card, call, dtype):
     got = upfirdn2d_bwd_cuda(g, k, call.up, call.pad, call.shape)
     assert (upfirdn2d_bwd_cuda.launches, upfirdn2d_bwd_cuda.down2_launches) == (
         before[0] + 1, before[1] + int(call.up == 2))
-    check(got, upfirdn2d_backward(g, k, call.up, call.pad, call.shape))
+    exact(got, upfirdn2d_backward(g, k, call.up, call.pad, call.shape))
     torch.cuda.synchronize()
 
 
