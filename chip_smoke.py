@@ -52,16 +52,35 @@ non-zero without printing the last line:
    losses of 3 steps against the CPU; e4e, PTI-step, source-DECA and
    set-up times and peak memory; one request of 16 raw frames served from
    the tuned generator. The backward kernels join phases 3 and 4 at the
-   shapes of one PTI step (``ops/main_path.py::pti_backward_calls``).
+   shapes of one PTI step (``ops/main_path.py::pti_backward_calls``);
+8. the CLI (``cli/run_inference.py::main``) on the card at full width: the
+   nets of slice 3 written as checkpoint files in the reference's layouts
+   into a temporary directory that ``REENACT_PRETRAINED_ROOT`` names, so
+   the loaders run; one source PNG and 32 target PNGs of 562×1000, black
+   with a textured patch (S3FD's stride-4 face score gated on content, so
+   the face lies on the patch; two patches sit on the top edge, so their
+   FFHQ boxes leave the frame and take the host crop). Three runs: (a) the
+   defaults (the fused loop, 200 PTI steps, float32) with
+   ``--save_images --save_grid``, (b) ``--compute_dtype bfloat16
+   --reuse_landmarks --video_content reenact --no-optimize_generator``,
+   (c) ``--no-device_crop`` (the unfused loop); each run's launches of
+   every kernel against what its set-up, chunks and fallbacks should
+   launch, the files it wrote, its wall time and the target loop's
+   frames/s; run (a)'s first chunk against a direct
+   ``make_fused_reenact_fn(..., outputs="reenact")`` call. A video is
+   written only where the libav video library builds.
 
 The last two lines are the kernels' numbers and ``{"ok": true, ...}``.
 """
 
 import copy
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter
 
@@ -70,6 +89,10 @@ import torch
 import torch.nn.functional as F
 
 PORT = "stylegan_directions_face_reenactment_tpu_torch"
+# the CLI phase writes its checkpoint files here; the port's registry reads
+# the variable when it is first imported
+CLI_DIR = os.path.join(tempfile.gettempdir(), f"chip_smoke_cli_{os.getpid()}")
+os.environ["REENACT_PRETRAINED_ROOT"] = os.path.join(CLI_DIR, "pretrained")
 try:
     from stylegan_directions_face_reenactment_tpu_torch.configs import MODELS
 except ImportError as e:
@@ -110,6 +133,9 @@ CPU_PTI_STEPS = 3                       # the PTI steps held against the CPU
 # last-digit differences into percent differences of the code
 # (tests/test_torch_e4e.py); a trained encoder's branches are damped too
 E4E_BN2_SCALE = 0.3
+CLI_TARGETS, CLI_PATCH = 32, 128        # target PNGs; side of the textured patch
+CLI_EDGE_TARGETS = (5, 21)              # targets whose patch sits on the top edge
+CLI_MAX_DIFF = 1                        # run (a) vs the direct call, intensity units
 
 
 class SmokeFailure(Exception):
@@ -1437,6 +1463,231 @@ def phase_slice3():
     return times, fwd, bwd
 
 
+def gate_s3fd_on_content(sfd):
+    """S3FD's stride-4 face logit := the sum of the L2-normed conv3_3
+    features in its 3x3 window less 10. Every trunk bias of the seeded S3FD
+    is 0, so where the frame is black the score is about 5e-5 and near
+    content 1.0: the face the reference keeps lies on the frame's textured
+    patch. (With a head's bias boosted, every anchor scores 1.0 and the kept
+    face lies on the frame's top edge, whose FFHQ box always leaves the
+    frame.)"""
+    conv = sfd.conv3_3_norm_mbox_conf
+    with torch.no_grad():
+        conv.weight.zero_()
+        conv.bias.zero_()
+        conv.weight[3] = 1.0
+        conv.bias[3] = -10.0
+
+
+def randomize_bn(module, seed):
+    """Random batch-norm statistics and affine terms (scale 1 ± 0.1, var
+    0.5-1.5). At identity statistics the seeded 4-module FAN's 68 heatmaps
+    peak at one cell, and the landmarks' box has no size."""
+    rs = np.random.RandomState(seed)
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                c = m.num_features
+                m.weight.copy_(torch.from_numpy((1 + 0.1 * rs.randn(c)).astype(np.float32)))
+                m.bias.copy_(torch.from_numpy((0.1 * rs.randn(c)).astype(np.float32)))
+                m.running_mean.copy_(torch.from_numpy((0.1 * rs.randn(c)).astype(np.float32)))
+                m.running_var.copy_(torch.from_numpy((0.5 + rs.rand(c)).astype(np.float32)))
+
+
+def patch_frame(top, left, seed):
+    """A black 562x1000 uint8 frame with a CLI_PATCH² patch of uniform noise
+    at (top, left)."""
+    f = np.zeros(FRAME_HW + (3,), np.uint8)
+    f[top:top + CLI_PATCH, left:left + CLI_PATCH] = np.random.RandomState(seed).randint(
+        0, 256, (CLI_PATCH, CLI_PATCH, 3))
+    return f
+
+
+def write_cli_inputs():
+    """The seeded nets of slice 3 as checkpoint files in the reference's
+    layouts (the generator's ``g_ema`` without its noise buffers and with the
+    modulated-conv weights' leading axis of 1, e4e's ``e``, the A bundle,
+    DECA's ``E_flame``, S3FD's raw state dict, ``{"state_dict": FAN}``, the
+    LPIPS bundle) and the PNG inputs. S3FD is gated on content and FAN's
+    batch norms are randomized. Returns (source path, target folder)."""
+    from PIL import Image
+
+    from stylegan_directions_face_reenactment_tpu_torch.configs import AUX_MODELS, MODELS
+    g, a, deca, sfd, fan, e4e, lp = build_slice3_nets("cpu")
+    gate_s3fd_on_content(sfd)
+    randomize_bn(fan, 9)
+    row = MODELS["voxceleb"]
+    os.makedirs(os.path.dirname(row["generator_path"]), exist_ok=True)
+    torch.save({"g_ema": {k: (v[None] if k.endswith("conv.weight") else v)
+                          for k, v in g.state_dict().items() if not k.startswith("noises.")}},
+               row["generator_path"])
+    torch.save({"e": e4e.state_dict()}, row["e4e_path"])
+    torch.save({"A_matrix": a.state_dict(), "w_plus": True, "num_layers_shift": 8},
+               row["directions_path"])
+    torch.save({"E_flame": deca.E_flame.state_dict()}, AUX_MODELS["deca"])
+    torch.save(sfd.state_dict(), AUX_MODELS["sfd"])
+    torch.save({"state_dict": fan.state_dict()}, AUX_MODELS["fan_2d"])
+    torch.save({"alex_features": lp.net.layers.state_dict(), "lin": lp.lin.state_dict()},
+               AUX_MODELS["lpips_alex"])
+
+    # the face lands about 30 px above the patch and its FFHQ box is about
+    # 64 px: patches from 120 px below the top edge keep it in the frame
+    h, w = FRAME_HW
+    source = os.path.join(CLI_DIR, "source.png")
+    Image.fromarray(patch_frame((h - CLI_PATCH) // 2, (w - CLI_PATCH) // 2, 40)).save(source)
+    targets = os.path.join(CLI_DIR, "targets")
+    os.makedirs(targets)
+    rs = np.random.RandomState(41)
+    for i in range(CLI_TARGETS):
+        top = 0 if i in CLI_EDGE_TARGETS else int(rs.randint(120, h - CLI_PATCH - 30))
+        left = int(rs.randint(100, w - CLI_PATCH - 100))
+        Image.fromarray(patch_frame(top, left, 50 + i)).save(
+            os.path.join(targets, f"{i:03d}.png"))
+    return source, targets
+
+
+def read_all_counts():
+    """(K1, K1 backward, of which down 2, K2, K2-bwd, K3) launches."""
+    fwd, bwd = read_counts(), read_bwd_counts()
+    return {"K1": fwd[0], "K1-bwd": bwd[0], "K1-bwd down 2": bwd[1], "K2": fwd[1],
+            "K2-bwd": bwd[2], "K3": fwd[2]}
+
+
+def phase_cli(smi):
+    """``cli/run_inference.py::main`` on the card, three runs."""
+    from PIL import Image
+
+    from stylegan_directions_face_reenactment_tpu_torch.cli import model_loading
+    from stylegan_directions_face_reenactment_tpu_torch.cli import run_inference as cli
+    from stylegan_directions_face_reenactment_tpu_torch.geometry import initialize_directions
+    from stylegan_directions_face_reenactment_tpu_torch.native import video_library
+    from stylegan_directions_face_reenactment_tpu_torch.ops.main_path import (
+        fused_bias_act_calls, pti_backward_calls, upfirdn2d_calls)
+    from stylegan_directions_face_reenactment_tpu_torch.pipeline import make_fused_reenact_fn
+
+    t0 = time.perf_counter()
+    source, targets = write_cli_inputs()
+    print(f"[cli] checkpoint files and {CLI_TARGETS + 1} PNGs of {FRAME_HW[0]}x{FRAME_HW[1]} "
+          f"written to {CLI_DIR} in {time.perf_counter() - t0:.1f} s")
+    try:
+        video_library()
+        video = ["--save_video"]
+        print("[cli] the libav video library built: run (a) writes the video")
+    except RuntimeError as e:
+        video = ["--no-save_video"]
+        lines = str(e).splitlines()
+        why = next((line for line in lines if "error" in line), lines[-1])
+        print(f"[cli] the libav video library did not build on this machine, so no run "
+              f"writes a video: {why[:200]}")
+
+    pti = pti_backward_calls(SIZE, CM)
+    k1, k2 = len(upfirdn2d_calls(SIZE, CM, 1)), len(fused_bias_act_calls(SIZE, CM, 1))
+    k1b_down2 = sum(c.up == 2 for c in pti.upfirdn2d)
+    n_mlp = MODELS["voxceleb"]["n_mlp"]
+    chunks = -(-CLI_TARGETS // BATCH)
+
+    def expected(pti_steps, k3_chunk, fallback_calls):
+        """Launches of one run: the mean latent's mapping (K2 a layer), the
+        source's FAN pass and its DECA alignment (K3 56 each), the PTI
+        steps, the chunks and the fallback calls (an unfused reenactment of
+        a padded chunk with the SFD + FAN alignment)."""
+        calls = chunks + fallback_calls
+        return {"K1": pti_steps * k1 + calls * k1, "K1-bwd": pti_steps * len(pti.upfirdn2d),
+                "K1-bwd down 2": pti_steps * k1b_down2,
+                "K2": n_mlp + pti_steps * k2 + calls * k2,
+                "K2-bwd": pti_steps * len(pti.fused_bias_act),
+                "K3": 2 * K3_PER_PASS + chunks * k3_chunk + fallback_calls * K3_PER_PASS}
+
+    kept = {}
+    real_setup = cli.setup_source
+
+    def kept_setup(*args, **kwargs):
+        out = real_setup(*args, **kwargs)
+        kept["args"], kept["kwargs"], kept["out"] = args, kwargs, out
+        return out
+
+    runs = {"a": (video + ["--save_images", "--save_grid"], PTI_STEPS, K3_PER_REQUEST),
+            "b": (["--compute_dtype", "bfloat16", "--reuse_landmarks", "--video_content",
+                   "reenact", "--no-optimize_generator", "--no-save_video", "--save_images"],
+                  0, K3_PER_PASS),
+            "c": (["--no-device_crop", "--no-save_video", "--save_images", "--save_grid"],
+                  PTI_STEPS, 2 * K3_PER_PASS)}
+    totals, results = Counter(), {}
+    cli.setup_source = kept_setup
+    try:
+        for tag, (flags, steps, k3_chunk) in runs.items():
+            out = os.path.join(CLI_DIR, f"out_{tag}")
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            stats = cli.main(["--source_path", source, "--target_path", targets,
+                              "--output_path", out, "--frame_batch", str(BATCH)] + flags)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = read_all_counts()
+            want = expected(steps, k3_chunk, stats.get("fallback_calls", 0))
+            fps = stats["frames"] / stats["target_s"]
+            results[tag] = {"wall_s": wall, "target_fps": fps, **stats}
+            print(f"[cli] run ({tag}) {' '.join(flags)}: wall {wall:.3f} s, target loop "
+                  f"{stats['target_s']:.3f} s = {fps:.2f} frames/s over {stats['frames']} "
+                  f"frames ({'fused' if stats['fused'] else 'unfused'} loop; host clock, "
+                  f"synchronized) on {smi}; frames without a face {stats.get('no_face', 0)}, "
+                  f"frames that took the host-crop fallback {stats.get('fallback_frames', 0)} "
+                  f"in {stats.get('fallback_calls', 0)} call(s)")
+            print(f"[cli] run ({tag}) target loop by part (host clock, s): "
+                  + ", ".join(f"{k[:-2]} {v:.3f}" for k, v in stats.items()
+                              if k.endswith("_s") and k != "target_s"))
+            print(f"[cli] run ({tag}) launches: "
+                  + ", ".join(f"{k} {got[k]} (expected {want[k]})" for k in got))
+            need(got == want, f"CLI run ({tag}): launches {got}, expected {want}")
+            totals.update(got)
+
+            files = sorted(os.listdir(out))
+            pngs = [f"{i:06d}.png" for i in range(CLI_TARGETS)]
+            need(all(f in files for f in pngs), f"CLI run ({tag}): per-frame PNGs missing")
+            if "--save_grid" in flags:
+                grids = sorted(os.listdir(os.path.join(out, "grids")))
+                need(grids == pngs, f"CLI run ({tag}): grids/ holds {len(grids)} files")
+                cell = np.asarray(Image.open(os.path.join(out, "grids", pngs[0])))
+                need(cell.shape == (256, 3 * 256, 3), f"CLI run ({tag}): grid {cell.shape}")
+            if "--save_video" in flags:
+                need(os.path.getsize(os.path.join(out, "generated_video.mp4")) > 0,
+                     f"CLI run ({tag}): no video")
+            first = np.asarray(Image.open(os.path.join(out, pngs[0])))
+            need(first.shape == (SIZE, SIZE, 3), f"CLI run ({tag}): frame {first.shape}")
+            print(f"[cli] run ({tag}) wrote {len(files)} entries: {CLI_TARGETS} frames "
+                  f"{first.shape}" + (", grids/" if "--save_grid" in flags else "")
+                  + (", generated_video.mp4" if "--save_video" in flags else ""))
+            if tag == "a":
+                setup_a = (kept["args"], kept["kwargs"], kept["out"])
+            need(stats["fused"] == (tag != "c"), f"CLI run ({tag}) took the wrong loop")
+    finally:
+        cli.setup_source = real_setup
+    need(results["a"]["fallback_frames"] > 0, "no frame took the host-crop fallback")
+
+    # run (a)'s first chunk against the fused program called directly on the
+    # same frames with the set-up's outputs
+    (g, _, deca, _, _), kw, (_, code, g_src, p_src, ang_src) = setup_a
+    a = model_loading.load_direction_matrix()
+    fan, sfd = kw["fan_params"], kw["s3fd_params"]
+    fn = make_fused_reenact_fn(g_src, a, deca, initialize_directions("voxceleb", 15, 6.0),
+                               sfd, fan, truncation=0.7,
+                               truncation_latent=kw["truncation_latent"], fan_params=fan,
+                               s3fd_params=sfd, outputs="reenact")
+    names = sorted(os.listdir(targets))[:BATCH]
+    frames = np.stack([np.asarray(Image.open(os.path.join(targets, f))) for f in names])
+    reen, ok, in_frame, _ = (t.cpu().numpy() for t in fn(code, p_src, ang_src, frames))
+    same = np.nonzero(ok & in_frame)[0]
+    need(len(same) >= len(names) // 2, f"only {len(same)} of chunk 0's frames are in the frame")
+    diffs = [int(np.abs(np.asarray(Image.open(os.path.join(CLI_DIR, "out_a", f"{i:06d}.png")))
+                        .astype(int) - reen[i].astype(int)).max()) for i in same]
+    print(f"[cli] run (a), chunk 0: {len(same)} of {len(names)} frames in the frame; their PNGs "
+          f"against a direct make_fused_reenact_fn(outputs='reenact') call: max |diff| "
+          f"{max(diffs)} intensity units (limit {CLI_MAX_DIFF})")
+    need(max(diffs) <= CLI_MAX_DIFF, "the CLI's frames disagree with the direct call")
+    return results, totals
+
+
 def main():
     name, smi = phase_device()
     torch.backends.cudnn.allow_tf32 = False
@@ -1451,6 +1702,10 @@ def main():
     results, launches = phase_slice()
     results2, launches2 = phase_slice2()
     times3, fwd3, bwd3 = phase_slice3()
+    try:
+        cli, cli_launches = phase_cli(smi)
+    finally:
+        shutil.rmtree(CLI_DIR, ignore_errors=True)
     for label, res in (("slice 1, resize path", results),
                        ("slice 2, default path, 562x1000 raw frames", results2)):
         for tag, r in res.items():
@@ -1462,8 +1717,13 @@ def main():
           f"{times3['pti_step_ms']:.3f} ms ({times3['pti_step_min']:.3f}-"
           f"{times3['pti_step_max']:.3f}), e4e {times3['e4e_ms']:.3f} ms, source DECA "
           f"{times3['deca_ms']:.3f} ms, peak {times3['peak_bytes']} bytes on {smi}")
-    launches = [launches[0] + launches2[0] + fwd3[0], launches[1] + launches2[1] + fwd3[1],
-                launches2[2] + fwd3[2], bwd3[0], bwd3[2]]
+    for tag, r in cli.items():
+        print(f"[result] CLI run ({tag}): wall {r['wall_s']:.3f} s, target loop "
+              f"{r['target_fps']:.2f} frames/s over {r['frames']} frames on {smi}")
+    launches = [launches[0] + launches2[0] + fwd3[0] + cli_launches["K1"],
+                launches[1] + launches2[1] + fwd3[1] + cli_launches["K2"],
+                launches2[2] + fwd3[2] + cli_launches["K3"], bwd3[0] + cli_launches["K1-bwd"],
+                bwd3[2] + cli_launches["K2-bwd"]]
     need(all(n > 0 for n in launches) and bwd3[1] > 0,
          f"a kernel of the main paths never launched: {launches}, K1 down 2 {bwd3[1]}")
 

@@ -1,3 +1,3 @@
-from .models_config import MODELS
+from .models_config import AUX_MODELS, MODELS, PRETRAINED_ROOT
 
-__all__ = ["MODELS"]
+__all__ = ["AUX_MODELS", "MODELS", "PRETRAINED_ROOT"]

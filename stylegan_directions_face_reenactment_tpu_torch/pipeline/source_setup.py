@@ -8,14 +8,15 @@ source coefficients that the per-frame paths take.
 
 The FFHQ crop is always 256, whatever the generator's size: the reference's
 ``crop_using_landmarks`` hard-codes it (``ffhq_cropping.py:50-65``), and
-e4e, ArcFace and DECA all take that crop. ``make_prep_fn``, the CLI's
-preparation of the source frame (host resize, SFD → FAN → FFHQ crop), comes
-with the CLI; :func:`setup_source` takes any ``prep`` callable.
+e4e, ArcFace and DECA all take that crop. :func:`make_prep_fn` is the
+CLI's preparation of frames into such crops (a host resize of ready crops,
+or SFD → FAN → FFHQ crop); :func:`setup_source` takes any ``prep``
+callable.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,8 +27,10 @@ from ..models.e4e import Encoder4Editing
 from ..models.face.fan import FAN
 from ..models.face.s3fd import S3FD
 from ..models.stylegan2 import Generator
+from ..native.imgproc import resize_bilinear_u8
 from ..utils.device import DeviceLike, resolve_device
 from .inversion import invert_image
+from .preprocess import DETECT_WIDTH, preprocess_images
 from .pti import optimize_g
 from .reenactment import source_shape
 
@@ -38,6 +41,35 @@ def pad_batch(x: np.ndarray, pad: int) -> np.ndarray:
     """Pad a frame chunk to a fixed batch by repeating the last row (callers
     slice the outputs back to the true length)."""
     return np.concatenate([x] + [x[-1:]] * pad) if pad else x
+
+
+def make_prep_fn(s3fd_params: Optional[S3FD], fan_params: Optional[FAN], *,
+                 skip_preprocess: bool = False, device_crop: bool = True,
+                 crop_size: int = CROP_SIZE, return_landmarks: bool = False,
+                 detect_width: Optional[int] = None,
+                 device: DeviceLike = None) -> Callable:
+    """``prep(frames)``: HWC uint8 frames → ((B, crop, crop, 3) float32 in
+    [-1, 1], ok (B,)[, landmarks in crop coordinates (B, 68, 2) with
+    ``return_landmarks``]).
+
+    ``skip_preprocess``: the frames are FFHQ crops already, resized
+    bilinearly on the host (the CLIs' ``--skip_preprocess``); otherwise
+    :func:`preprocess_images` (SFD → FAN → FFHQ crop on ``device``) after a
+    rescale to ``detect_width`` (None: the reference's 1000; 0: none)."""
+    if return_landmarks and skip_preprocess:
+        raise ValueError("return_landmarks requires the detection prep "
+                         "(incompatible with skip_preprocess)")
+
+    def prep(frames: List[np.ndarray]) -> Tuple[np.ndarray, ...]:
+        if skip_preprocess:
+            batch = resize_bilinear_u8(np.stack(frames).astype(np.uint8), (crop_size, crop_size))
+            return batch.astype(np.float32) / 127.5 - 1.0, np.ones(len(frames), bool)
+        return preprocess_images(s3fd_params, fan_params, frames, image_size=crop_size,
+                                 device_crop=device_crop, return_landmarks=return_landmarks,
+                                 detect_width=DETECT_WIDTH if detect_width is None
+                                 else detect_width, device=device)
+
+    return prep
 
 
 def setup_source(g_params: Generator, e4e_params: Encoder4Editing, deca_params: DECA,
