@@ -59,11 +59,14 @@ non-zero without printing the last line:
    the loaders run; one source PNG and 32 target PNGs of 562×1000, black
    with a textured patch (S3FD's stride-4 face score gated on content, so
    the face lies on the patch; two patches sit on the top edge, so their
-   FFHQ boxes leave the frame and take the host crop). Three runs: (a) the
+   FFHQ boxes leave the frame and take the host crop). Four runs: (a) the
    defaults (the fused loop, 200 PTI steps, float32) with
    ``--save_images --save_grid``, (b) ``--compute_dtype bfloat16
    --reuse_landmarks --video_content reenact --no-optimize_generator``,
-   (c) ``--no-device_crop`` (the unfused loop); each run's launches of
+   (c) ``--no-device_crop`` (the unfused loop), (d) a longer window of the
+   fused loop: 160 targets (the 30 in-frame PNGs over and over, 10 chunks,
+   no fallback) with ``--no-optimize_generator --save_images
+   --save_grid``; each run's launches of
    every kernel against what its set-up, chunks and fallbacks should
    launch, the files it wrote, its wall time and the target loop's
    frames/s; run (a)'s first chunk against a direct
@@ -135,6 +138,7 @@ CPU_PTI_STEPS = 3                       # the PTI steps held against the CPU
 E4E_BN2_SCALE = 0.3
 CLI_TARGETS, CLI_PATCH = 32, 128        # target PNGs; side of the textured patch
 CLI_EDGE_TARGETS = (5, 21)              # targets whose patch sits on the top edge
+CLI_WINDOW = 160                        # run (d)'s targets, in-frame PNGs repeated
 CLI_MAX_DIFF = 1                        # run (a) vs the direct call, intensity units
 
 
@@ -1554,7 +1558,7 @@ def read_all_counts():
 
 
 def phase_cli(smi):
-    """``cli/run_inference.py::main`` on the card, three runs."""
+    """``cli/run_inference.py::main`` on the card, four runs."""
     from PIL import Image
 
     from stylegan_directions_face_reenactment_tpu_torch.cli import model_loading
@@ -1569,6 +1573,13 @@ def phase_cli(smi):
     source, targets = write_cli_inputs()
     print(f"[cli] checkpoint files and {CLI_TARGETS + 1} PNGs of {FRAME_HW[0]}x{FRAME_HW[1]} "
           f"written to {CLI_DIR} in {time.perf_counter() - t0:.1f} s")
+    window = os.path.join(CLI_DIR, "window")
+    os.makedirs(window)
+    in_frame = [f for i, f in enumerate(sorted(os.listdir(targets)))
+                if i not in CLI_EDGE_TARGETS]
+    for i in range(CLI_WINDOW):
+        os.symlink(os.path.join(targets, in_frame[i % len(in_frame)]),
+                   os.path.join(window, f"{i:03d}.png"))
     try:
         video_library()
         video = ["--save_video"]
@@ -1584,13 +1595,13 @@ def phase_cli(smi):
     k1, k2 = len(upfirdn2d_calls(SIZE, CM, 1)), len(fused_bias_act_calls(SIZE, CM, 1))
     k1b_down2 = sum(c.up == 2 for c in pti.upfirdn2d)
     n_mlp = MODELS["voxceleb"]["n_mlp"]
-    chunks = -(-CLI_TARGETS // BATCH)
 
-    def expected(pti_steps, k3_chunk, fallback_calls):
+    def expected(pti_steps, k3_chunk, fallback_calls, n_frames):
         """Launches of one run: the mean latent's mapping (K2 a layer), the
         source's FAN pass and its DECA alignment (K3 56 each), the PTI
         steps, the chunks and the fallback calls (an unfused reenactment of
         a padded chunk with the SFD + FAN alignment)."""
+        chunks = -(-n_frames // BATCH)
         calls = chunks + fallback_calls
         return {"K1": pti_steps * k1 + calls * k1, "K1-bwd": pti_steps * len(pti.upfirdn2d),
                 "K1-bwd down 2": pti_steps * k1b_down2,
@@ -1606,26 +1617,30 @@ def phase_cli(smi):
         kept["args"], kept["kwargs"], kept["out"] = args, kwargs, out
         return out
 
-    runs = {"a": (video + ["--save_images", "--save_grid"], PTI_STEPS, K3_PER_REQUEST),
+    # tag: (flags, PTI steps, K3 launches a chunk, targets)
+    runs = {"a": (video + ["--save_images", "--save_grid"], PTI_STEPS, K3_PER_REQUEST, targets),
             "b": (["--compute_dtype", "bfloat16", "--reuse_landmarks", "--video_content",
                    "reenact", "--no-optimize_generator", "--no-save_video", "--save_images"],
-                  0, K3_PER_PASS),
+                  0, K3_PER_PASS, targets),
             "c": (["--no-device_crop", "--no-save_video", "--save_images", "--save_grid"],
-                  PTI_STEPS, 2 * K3_PER_PASS)}
+                  PTI_STEPS, 2 * K3_PER_PASS, targets),
+            "d": (["--no-optimize_generator", "--no-save_video", "--save_images", "--save_grid"],
+                  0, K3_PER_REQUEST, window)}
     totals, results = Counter(), {}
     cli.setup_source = kept_setup
     try:
-        for tag, (flags, steps, k3_chunk) in runs.items():
+        for tag, (flags, steps, k3_chunk, folder) in runs.items():
             out = os.path.join(CLI_DIR, f"out_{tag}")
+            n_frames = len(os.listdir(folder))
             torch.cuda.synchronize()
             reset_counts()
             t0 = time.perf_counter()
-            stats = cli.main(["--source_path", source, "--target_path", targets,
+            stats = cli.main(["--source_path", source, "--target_path", folder,
                               "--output_path", out, "--frame_batch", str(BATCH)] + flags)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             got = read_all_counts()
-            want = expected(steps, k3_chunk, stats.get("fallback_calls", 0))
+            want = expected(steps, k3_chunk, stats.get("fallback_calls", 0), n_frames)
             fps = stats["frames"] / stats["target_s"]
             results[tag] = {"wall_s": wall, "target_fps": fps, **stats}
             print(f"[cli] run ({tag}) {' '.join(flags)}: wall {wall:.3f} s, target loop "
@@ -1643,7 +1658,7 @@ def phase_cli(smi):
             totals.update(got)
 
             files = sorted(os.listdir(out))
-            pngs = [f"{i:06d}.png" for i in range(CLI_TARGETS)]
+            pngs = [f"{i:06d}.png" for i in range(n_frames)]
             need(all(f in files for f in pngs), f"CLI run ({tag}): per-frame PNGs missing")
             if "--save_grid" in flags:
                 grids = sorted(os.listdir(os.path.join(out, "grids")))
@@ -1655,7 +1670,7 @@ def phase_cli(smi):
                      f"CLI run ({tag}): no video")
             first = np.asarray(Image.open(os.path.join(out, pngs[0])))
             need(first.shape == (SIZE, SIZE, 3), f"CLI run ({tag}): frame {first.shape}")
-            print(f"[cli] run ({tag}) wrote {len(files)} entries: {CLI_TARGETS} frames "
+            print(f"[cli] run ({tag}) wrote {len(files)} entries: {n_frames} frames "
                   f"{first.shape}" + (", grids/" if "--save_grid" in flags else "")
                   + (", generated_video.mp4" if "--save_video" in flags else ""))
             if tag == "a":

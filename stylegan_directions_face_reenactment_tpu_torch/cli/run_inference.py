@@ -28,13 +28,13 @@ import torch
 
 from ..geometry import initialize_directions
 from ..models.face.cropping import crop_using_landmarks_batch
-from ..native.imgproc import extract_frames, generate_video, video_library
+from ..native.imgproc import extract_frames, from_gan_range, generate_video, video_library
 from ..pipeline import (CROP_SIZE, make_fused_reenact_fn, make_prep_fn, make_reenact_fn,
-                        pad_batch, setup_source)
+                        pad_batch, setup_source, to_gan_range)
 from ..pipeline.preprocess import DETECT_WIDTH, resize_width
 from ..utils.common import get_image_files
 from ..utils.device import resolve_device
-from ..utils.image_utils import (generate_grid_image, load_image, resize_u8, save_image,
+from ..utils.image_utils import (generate_grid_image, grid_row, load_image, save_image,
                                  save_u8, tensor_to_image)
 from . import model_loading
 
@@ -149,13 +149,12 @@ def _run_targets_fused(args, resized, reenact_fused, source_img, source_code,
     chunk i+1. Frames whose FFHQ box leaves the frame are cut again by the
     host crop and run through ``make_fallback()``'s unfused program.
 
-    The [source | crop | reenacted] row is composed here, with the
-    reenacted cell resized to the crop as the device grid does, so
-    ``--save_images`` writes the generator-resolution frame in both video
-    modes. Returns the frames for the video; ``stats`` gains the counts and
-    the host seconds spent waiting for the card, in the fallback and
-    writing files, and inside the program's calls (which return once the
-    chunk's work is queued)."""
+    The [source | crop | reenacted] row is composed here by ``grid_row``,
+    as the unfused loop composes it, so ``--save_images`` writes the
+    generator-resolution frame in both video modes. Returns the frames for
+    the video; ``stats`` gains the counts and the host seconds spent
+    waiting for the card, in the fallback and writing files, and inside the
+    program's calls (which return once the chunk's work is queued)."""
     bi = args.frame_batch
     chunks = [resized[s:s + bi] for s in range(0, len(resized), bi)]
     src_cell = tensor_to_image(source_img)
@@ -205,9 +204,7 @@ def _run_targets_fused(args, resized, reenact_fused, source_img, source_code,
                 save_u8(reen_u8[j], os.path.join(args.output_path, f"{idx:06d}.png"))
             if args.save_grid or args.save_video:
                 if need_crops:
-                    frame = np.concatenate(
-                        [src_cell, crops_u8[j], resize_u8(reen_u8[j], crops_u8.shape[1:3])],
-                        axis=1)
+                    frame = grid_row(src_cell, crops_u8[j], reen_u8[j])
                 else:
                     frame = reen_u8[j]
                 if args.save_grid:
@@ -346,12 +343,9 @@ def main(argv=None):
             def fallback(frames_list, lms):
                 crops, cok = crop_using_landmarks_batch(frames_list, list(lms),
                                                         image_size=CROP_SIZE)
-                tgt = pad_batch(crops.astype(np.float32) / 127.5 - 1.0,
-                                args.frame_batch - len(frames_list))
+                tgt = pad_batch(to_gan_range(crops), args.frame_batch - len(frames_list))
                 reen = reenact_host(source_code, params_source, angles_source, tgt)[0]
-                reen = reen[:len(frames_list)].float().cpu().numpy()
-                reen_u8 = np.round(np.clip((reen + 1.0) * 127.5, 0, 255)).astype(np.uint8)
-                return crops, reen_u8, cok
+                return crops, from_gan_range(reen[:len(frames_list)].float().cpu()), cok
 
             return fallback
 

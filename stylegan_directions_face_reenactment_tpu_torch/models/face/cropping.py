@@ -62,33 +62,23 @@ def cubic_kernel(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x < 1.0, near, torch.where(x < 2.0, far, torch.zeros_like(x)))
 
 
-def triangle_kernel(x: torch.Tensor) -> torch.Tensor:
-    """The bilinear filter (PIL BILINEAR)."""
-    return torch.clamp_min(1.0 - x.abs(), 0.0)
-
-
-# PIL's filters and their supports
-FILTERS = {"bicubic": (cubic_kernel, 2.0), "bilinear": (triangle_kernel, 1.0)}
-
-
 def pil_axis_weights(in_len: int, start: torch.Tensor, crop_len: torch.Tensor,
-                     out_len: int, kind: str = "bicubic") -> torch.Tensor:
-    """Per-image resampling weights of PIL's antialiased filter ``kind``
-    for one axis: window [lo, hi) from the ±support rule, normalized over
-    the window. start / crop_len (B,): the crop's origin and side in image
-    coords. Returns (B, out_len, in_len)."""
-    kernel, filter_support = FILTERS[kind]
+                     out_len: int) -> torch.Tensor:
+    """Per-image resampling weights of PIL's antialiased cubic for one axis:
+    window [lo, hi) from the ±support rule, normalized over the window.
+    start / crop_len (B,): the crop's origin and side in image coords.
+    Returns (B, out_len, in_len)."""
     dev = start.device
     scale = crop_len / out_len                                   # (B,)
     filterscale = torch.clamp_min(scale, 1.0)
-    support = filter_support * filterscale
+    support = 2.0 * filterscale
     i = torch.arange(out_len, dtype=torch.float32, device=dev)
     center = (i[None] + 0.5) * scale[:, None]                    # (B, O) crop coords
     lo = torch.clamp_min(torch.floor(center - support[:, None] + 0.5), 0.0)
     hi = torch.minimum(torch.floor(center + support[:, None] + 0.5), crop_len[:, None])
     j = torch.arange(in_len, dtype=torch.float32, device=dev)
     jc = j[None, None, :] - start[:, None, None]                 # (B, 1, In)
-    w = kernel((jc - center[..., None] + 0.5) / filterscale[:, None, None])
+    w = cubic_kernel((jc - center[..., None] + 0.5) / filterscale[:, None, None])
     w = torch.where((jc >= lo[..., None]) & (jc < hi[..., None]), w, torch.zeros_like(w))
     norm = w.sum(dim=-1, keepdim=True)
     return w / torch.where(norm == 0.0, torch.ones_like(norm), norm)
@@ -161,15 +151,14 @@ def crop_from_bbox(img: np.ndarray, bbox) -> np.ndarray:
     return img[y1:y2, x1:x2]
 
 
-def resample_u8(img: np.ndarray, out_hw: Tuple[int, int],
-                kind: str = "bicubic") -> np.ndarray:
-    """(h, w, C) uint8 → (out_h, out_w, C) uint8 as Pillow's ``resize``
-    with filter ``kind``: the weights of :func:`pil_axis_weights`, the rows
-    first, each pass quantized to uint8, on the CPU."""
+def resample_u8(img: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
+    """(h, w, C) uint8 → (out_h, out_w, C) uint8 as Pillow's bicubic
+    ``resize``: the weights of :func:`pil_axis_weights`, the rows first,
+    each pass quantized to uint8, on the CPU."""
     h, w = img.shape[:2]
     zero = torch.zeros(1)
-    wx = pil_axis_weights(w, zero, torch.tensor([float(w)]), out_hw[1], kind)[0]
-    wy = pil_axis_weights(h, zero, torch.tensor([float(h)]), out_hw[0], kind)[0]
+    wx = pil_axis_weights(w, zero, torch.tensor([float(w)]), out_hw[1])[0]
+    wy = pil_axis_weights(h, zero, torch.tensor([float(h)]), out_hw[0])[0]
     x = torch.from_numpy(np.ascontiguousarray(img)).float()
     with full_f32_matmul():
         tmp = _q8(torch.einsum("ox,yxc->yoc", wx, x))

@@ -1,5 +1,5 @@
-from .imgproc import (extract_frames, from_gan_range, generate_video,
-                      resize_bilinear_u8, to_gan_range, video_fps, video_library)
+from .imgproc import (extract_frames, from_gan_range, generate_video, resize_bilinear_u8,
+                      video_fps, video_library)
 
-__all__ = ["extract_frames", "from_gan_range", "generate_video",
-           "resize_bilinear_u8", "to_gan_range", "video_fps", "video_library"]
+__all__ = ["extract_frames", "from_gan_range", "generate_video", "resize_bilinear_u8",
+           "video_fps", "video_library"]

@@ -1,10 +1,10 @@
 """Host image operations and video files.
 
-* :func:`resize_bilinear_u8`, :func:`to_gan_range` and
-  :func:`from_gan_range` are PyTorch on CPU tensors, with the arithmetic of
-  the JAX package's native library (``reenact_io.cpp``): the resize takes
-  half-pixel centres, clamps at the low edge, interpolates in float64 and
-  rounds half up.
+* :func:`resize_bilinear_u8` and :func:`from_gan_range` are PyTorch on
+  CPU tensors, with the arithmetic of the JAX package's native library
+  (``reenact_io.cpp``): the resize takes half-pixel centres, clamps at the
+  low edge and interpolates in float64; both round half up. The inverse
+  conversion is ``pipeline/preprocess.py::to_gan_range``.
 * :func:`extract_frames`, :func:`video_fps` and :func:`generate_video` go
   through ``video_io.cpp`` (libav), built with ``g++`` at first use into
   ``build/native/`` beside the package and loaded with ctypes. Where it
@@ -156,13 +156,8 @@ def resize_bilinear_u8(batch, out_hw: Tuple[int, int]) -> np.ndarray:
     return torch.floor(v + 0.5).to(torch.uint8).numpy()
 
 
-def to_gan_range(batch_u8) -> np.ndarray:
-    """uint8 → float32 in [-1, 1]."""
-    x = torch.as_tensor(np.ascontiguousarray(batch_u8, np.uint8))
-    return (x.float() / 127.5 - 1.0).numpy()
-
-
 def from_gan_range(batch_f32) -> np.ndarray:
-    """float32 in [-1, 1] → uint8, clipped and rounded half up."""
-    x = torch.as_tensor(np.ascontiguousarray(batch_f32, np.float32))
+    """float32 in [-1, 1] (an array or a CPU tensor) → uint8, clipped and
+    rounded half up."""
+    x = torch.as_tensor(batch_f32, dtype=torch.float32)
     return torch.floor(((x + 1.0) * 127.5).clamp(0.0, 255.0) + 0.5).to(torch.uint8).numpy()

@@ -20,7 +20,6 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from ..geometry.directions import DirectionsSpec, make_shift_vector
 from ..models.deca.deca import DECA, calculate_shapemodel
@@ -34,7 +33,7 @@ from .alignment import landmark_align, make_fan_align
 from .preprocess import preprocess_batch_device
 from .synthesis import generate_image
 
-OUTPUTS = ("full", "grid", "reenact")
+OUTPUTS = ("full", "reenact")
 
 
 def align_for(fan_params: Optional[FAN], s3fd_params: Optional[S3FD] = None,
@@ -142,9 +141,6 @@ def reenact_raw_batch(g: Generator, a: DirectionMatrix, deca: DECA,
     ``outputs``:
       * "full": (reenacted (T, s, s, 3), latents, crops_u8 (T, crop, crop,
         3), ok (T,), in_frame (T,), landmarks (T, 68, 2));
-      * "grid": ([crop | reenacted] uint8 (T, crop, 2·crop, 3), ok,
-        in_frame, landmarks), the reenacted cell resized bilinearly to the
-        crop size when the generator is smaller; implies uint8;
       * "reenact": (reenacted uint8, ok, in_frame, landmarks).
     ``in_frame`` is False where the FFHQ box leaves the frame: those crops
     are edge-clamped approximations of the host crop. ``output_u8`` returns
@@ -167,17 +163,8 @@ def reenact_raw_batch(g: Generator, a: DirectionMatrix, deca: DECA,
             g, a, deca, spec, source_code, params_source, angles_source, crops_gan,
             fan_params=fan_params, s3fd_params=s3fd_params, **kw)
     crops_u8 = to_u8(crops_gan)          # the integer-valued crops, exactly
-    if output_u8 or outputs in ("grid", "reenact"):
+    if output_u8 or outputs == "reenact":
         reenacted = to_u8(reenacted)
-    if outputs == "grid":
-        cell = reenacted
-        if cell.shape[1:3] != crops_u8.shape[1:3]:
-            # a generator smaller than the crop: resize its cell as the
-            # host grid does
-            up = F.interpolate(cell.permute(0, 3, 1, 2).float(), size=crops_u8.shape[1:3],
-                               mode="bilinear", align_corners=False)
-            cell = torch.clamp(torch.round(up), 0, 255).to(torch.uint8).permute(0, 2, 3, 1)
-        return torch.cat([crops_u8, cell], dim=2), ok, in_frame, pts
     if outputs == "reenact":
         return reenacted, ok, in_frame, pts
     return reenacted, latents, crops_u8, ok, in_frame, pts

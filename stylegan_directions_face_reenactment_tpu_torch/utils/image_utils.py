@@ -9,11 +9,10 @@ else.
 
 from __future__ import annotations
 
-from typing import Tuple
-
 import numpy as np
 import torch
-import torch.nn.functional as F
+
+from ..native.imgproc import resize_bilinear_u8
 
 
 def _np(x) -> np.ndarray:
@@ -29,19 +28,6 @@ def tensor_to_image(x) -> np.ndarray:
     if x.ndim == 4:
         x = x[0]
     return np.clip((x + 1.0) * 127.5, 0, 255).astype(np.uint8)
-
-
-def resize_u8(img: np.ndarray, hw: Tuple[int, int]) -> np.ndarray:
-    """HWC uint8 → (h, w, C) uint8 as the JAX package's device grid
-    resizes its reenacted cells (``jax.image.resize``): bilinear with
-    half-pixel centres in one pass, antialiased when it shrinks, rounded."""
-    if img.shape[:2] == tuple(hw):
-        return img
-    t = torch.from_numpy(np.ascontiguousarray(img)).permute(2, 0, 1)[None].float()
-    out = F.interpolate(t, size=tuple(hw), mode="bilinear", align_corners=False,
-                        antialias=True)
-    out = torch.round(out).clamp(0, 255).to(torch.uint8)
-    return out[0].permute(1, 2, 0).numpy()
 
 
 def save_image(x, path: str) -> None:
@@ -69,20 +55,21 @@ def load_image(path: str, size: int = None) -> np.ndarray:
     return np.asarray(img)
 
 
+def grid_row(source: np.ndarray, target: np.ndarray, reenacted: np.ndarray) -> np.ndarray:
+    """One [source | target | reenacted] row of HWC uint8 cells
+    (``utils_inference.py:20-33``). A cell of another size than the
+    target's is resized to it by ``native/imgproc.py::resize_bilinear_u8``:
+    that is a generator smaller than the 256 crop, whose frames the grid
+    upsamples (larger ones are pooled to 256 by the synthesis)."""
+    hw = target.shape[:2]
+    cells = [c if c.shape[:2] == hw else resize_bilinear_u8(c[None], hw)[0]
+             for c in (source, target, reenacted)]
+    return np.concatenate(cells, axis=1)
+
+
 def generate_grid_image(source, target, reenacted) -> np.ndarray:
-    """Row-per-sample [source | target | reenacted] grid of [-1, 1] NHWC
-    batches (``utils_inference.py:20-33``) → HWC uint8; a cell of another
-    size (a generator smaller than the crop) is resized to the target's as
-    Pillow's bilinear ``resize`` does it."""
-    from ..models.face.cropping import resample_u8
-
-    source, target, reenacted = _np(source), _np(target), _np(reenacted)
-    cell = target.shape[1:3]
-
-    def _cell(x):
-        img = tensor_to_image(x)
-        return img if img.shape[:2] == cell else resample_u8(img, cell, "bilinear")
-
-    rows = [np.concatenate([_cell(im) for im in trio], axis=1)
-            for trio in zip(source, target, reenacted)]
+    """Row-per-sample :func:`grid_row` grid of [-1, 1] NHWC batches → HWC
+    uint8."""
+    rows = [grid_row(*(tensor_to_image(im) for im in trio))
+            for trio in zip(_np(source), _np(target), _np(reenacted))]
     return np.concatenate(rows, axis=0)

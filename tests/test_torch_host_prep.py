@@ -1,7 +1,8 @@
 """The port's host preparation against the JAX package's on the CPU: the
 bilinear resize and range conversions (``native/imgproc.py``), the host
 FFHQ crop (``models/face/cropping.py``), ``resize_width``,
-``preprocess_images`` and ``make_prep_fn``.
+``preprocess_images``, ``make_prep_fn`` and the grid row of the CLI's
+``--save_grid`` (``utils/image_utils.py``).
 
 Tolerances:
 * ``resize_bilinear_u8``: within 1 unit of the JAX package's native resize
@@ -15,13 +16,15 @@ Tolerances:
   equal, crops within 1 unit (1/127.5 in [-1, 1]), landmarks in crop
   coordinates rtol 1e-5, atol 1e-4 px (the same SFD → FAN landmarks, mapped
   in float32 in both);
+* the grid row: within 1 unit of the JAX package's host grid (Pillow's
+  bilinear) and of its device grid's cell resize (``jax.image.resize``);
 * the video library (no JAX counterpart is compared): a round trip within
-  the codec's loss, or an error where it does not build.
+  the codec's loss where it builds, and it skips where it does not (no
+  libav headers); every video call raises where the library cannot build.
 """
 
 import numpy as np
 import jax
-import jax.numpy as jnp
 import pytest
 import torch
 
@@ -31,16 +34,20 @@ from stylegan_directions_face_reenactment_tpu.pipeline.preprocess import (
     preprocess_images as j_preprocess_images, resize_width as j_resize_width)
 from stylegan_directions_face_reenactment_tpu.pipeline.source_setup import (
     make_prep_fn as j_make_prep_fn)
+from stylegan_directions_face_reenactment_tpu.utils.image_utils import (
+    generate_grid_image as j_generate_grid_image)
 from stylegan_directions_face_reenactment_tpu.weights.torch_convert import (
     convert_fan, convert_s3fd)
 
 from stylegan_directions_face_reenactment_tpu_torch.models.face.cropping import (
     crop_using_landmarks, crop_using_landmarks_batch)
 from stylegan_directions_face_reenactment_tpu_torch.native import (
-    extract_frames, from_gan_range, generate_video, imgproc, resize_bilinear_u8, to_gan_range,
-    video_fps, video_library)
+    extract_frames, from_gan_range, generate_video, imgproc, resize_bilinear_u8, video_fps,
+    video_library)
 from stylegan_directions_face_reenactment_tpu_torch.pipeline import (
-    make_prep_fn, preprocess_images, resize_width)
+    make_prep_fn, preprocess_images, resize_width, to_gan_range)
+from stylegan_directions_face_reenactment_tpu_torch.utils.image_utils import (
+    generate_grid_image, tensor_to_image)
 
 from torch_cli_files import FAN_MODULES, patch_frame, seeded_modules
 from torch_face_zoo import to_np
@@ -201,7 +208,7 @@ def test_video_round_trip(tmp_path):
         for call in (lambda: generate_video(frames, path), lambda: extract_frames(path)):
             with pytest.raises(RuntimeError, match="video library"):
                 call()
-        return
+        pytest.skip(f"the video library does not build here: {str(e)[-300:]}")
     generate_video(frames, path, fps=25)
     assert abs(video_fps(path) - 25.0) <= 1.0
     back = extract_frames(path)
@@ -214,18 +221,43 @@ def test_video_round_trip(tmp_path):
         np.testing.assert_array_equal(np.stack(back), np.stack(j_imgproc.extract_frames(path)))
 
 
-def test_video_library_build_failure_raises(tmp_path, monkeypatch):
-    """A source that does not compile: the error carries g++'s message."""
+@pytest.mark.parametrize("call", ["video_library", "generate_video", "extract_frames",
+                                  "video_fps"])
+def test_video_library_build_failure_raises(tmp_path, monkeypatch, call):
+    """A source that does not compile: every video call raises, with g++'s
+    message, and none of them reads or writes a file."""
     src = tmp_path / "broken.cpp"
     src.write_text("this is not C++\n")
     monkeypatch.setattr(imgproc, "SOURCE", str(src))
     monkeypatch.setattr(imgproc, "BUILD_DIR", str(tmp_path / "build"))
+    path = str(tmp_path / "v.mp4")
+    frame = np.zeros((16, 16, 3), np.uint8)
+    args = {"video_library": (), "generate_video": ([frame], path), "extract_frames": (path,),
+            "video_fps": (path,)}[call]
     imgproc.video_library.cache_clear()
     try:
         with pytest.raises(RuntimeError, match="did not build|needs g\\+\\+"):
-            imgproc.video_library()
+            getattr(imgproc, call)(*args)
     finally:
         imgproc.video_library.cache_clear()
+    assert not (tmp_path / "v.mp4").exists()
+
+
+@pytest.mark.parametrize("size", [64, 128])
+def test_grid_matches_jax(size):
+    """[source | target | reenacted] rows of 256² cells with the frames of a
+    smaller generator, which the grid upsamples: the JAX package's host
+    grid (Pillow), and for the reenacted cell its device grid's resize."""
+    rs = np.random.RandomState(size)
+    src, tgt = (rs.uniform(-1, 1, (2, 256, 256, 3)).astype(np.float32) for _ in range(2))
+    reen = rs.uniform(-1, 1, (2, size, size, 3)).astype(np.float32)
+    got = generate_grid_image(src, tgt, reen)
+    assert got.dtype == np.uint8 and got.shape == (512, 768, 3)
+    assert max_diff(got, j_generate_grid_image(src, tgt, reen)) <= 1
+    cells = np.clip(np.round(np.asarray(jax.image.resize(
+        np.stack([tensor_to_image(r) for r in reen]).astype(np.float32), (2, 256, 256, 3),
+        "bilinear"))), 0, 255)
+    assert max_diff(got[:, 512:], np.concatenate(list(cells), axis=0)) <= 1
 
 
 def test_prep_runs_on_the_card_by_default(nets, frames, monkeypatch):
