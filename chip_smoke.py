@@ -70,8 +70,23 @@ non-zero without printing the last line:
    every kernel against what its set-up, chunks and fallbacks should
    launch, the files it wrote, its wall time and the target loop's
    frames/s; run (a)'s first chunk against a direct
-   ``make_fused_reenact_fn(..., outputs="reenact")`` call. A video is
-   written only where the libav video library builds.
+   ``make_fused_reenact_fn(..., outputs="reenact")`` call; run (a) also
+   writes the video (OpenCV, fourcc ``mp4v``) and reads it back;
+9. [edit] and [invert]: ``cli/run_facial_editing.py`` three ways and
+   ``cli/invert_images.py`` on a fabricated tree, at full width, with exact
+   launch counts and each held against a direct call;
+10. K3's backward (``fused_conv_block_bwd``) against plain autograd at a
+    FAN pass's shapes (B = 4), float32 and bf16, and its device time beside
+    autograd through the cuDNN composition;
+11. [grad]: frames that need a gradient through ``make_fan_align(fan,
+    s3fd)`` and through ``estimate_landmarks`` on the card against the CPU,
+    the parameters' ``.grad`` checked, and a float64 witness of how far
+    float32 gradients of the random FAN land (``grad_witness``);
+12. [flame]: ``deca_decode`` at B = 16 on FLAME at 5023 vertices, card
+    against CPU, and its time.
+
+Phases 10-12 run last, so that the readings of 1-8 keep the conditions
+they were first recorded in.
 
 The last two lines are the kernels' numbers and ``{"ok": true, ...}``.
 """
@@ -86,6 +101,7 @@ import sys
 import tempfile
 import time
 from collections import Counter
+from unittest import mock
 
 import numpy as np
 import torch
@@ -140,6 +156,12 @@ CLI_TARGETS, CLI_PATCH = 32, 128        # target PNGs; side of the textured patc
 CLI_EDGE_TARGETS = (5, 21)              # targets whose patch sits on the top edge
 CLI_WINDOW = 160                        # run (d)'s targets, in-frame PNGs repeated
 CLI_MAX_DIFF = 1                        # run (a) vs the direct call, intensity units
+GRAD_BATCH = 4                          # [grad]'s 256² frames needing a gradient
+GRAD_RTOL, GRAD_ATOL = 1e-3, 2e-3       # card vs CPU gradients, atol relative to max
+GRAD_FAN_DAMP = 0.3                     # [grad]'s FAN conv weights scaled against growth
+FLAME_BATCH = 16
+INVERT_IDS, INVERT_VIDEOS, INVERT_FRAMES, INVERT_BATCH = 2, 2, 8, 4
+FLAME_RTOL, FLAME_ATOL = 1e-4, 1e-5     # FLAME decode card vs CPU, atol relative to max
 
 
 class SmokeFailure(Exception):
@@ -642,6 +664,285 @@ def phase_timing_bwd(card_name):
     return out
 
 
+def k3_leaves(x, args):
+    """Leaf copies of x and the K3Args' folds and weights that need a
+    gradient, and K3Args over them (the packed weights as they were: the
+    kernel reads them, and their gradient would reach ``w``)."""
+    from stylegan_directions_face_reenactment_tpu_torch.ops.fused_conv_block import K3Args
+    leaves = [t.detach().clone().requires_grad_() for t in (x,) + args.inv + args.off + args.w]
+    return leaves, K3Args(tuple(leaves[1:4]), tuple(leaves[4:7]), tuple(leaves[7:10]), args.wk)
+
+
+def plain_grads(x, args, g):
+    """Autograd through the plain composition from fresh leaves: the
+    gradients of x and of every fold and weight."""
+    from stylegan_directions_face_reenactment_tpu_torch.ops.fused_conv_block import (
+        fused_conv_block_plain)
+    leaves, largs = k3_leaves(x, args)
+    return torch.autograd.grad(fused_conv_block_plain(leaves[0], largs), leaves, g)
+
+
+def phase_k3_bwd(card_name):
+    """K3's backward (``fused_conv_block_bwd``: the plain version recomputed
+    and differentiated, through cuDNN) at the shapes of a FAN pass over
+    GRAD_BATCH crops, float32 and bf16: the gradients of x and of every fold
+    and weight through the autograd Function (the kernel forward, K3-bwd
+    backward) against plain autograd through ``fused_conv_block_plain``; then
+    its device time beside autograd through the cuDNN composition (its
+    forward and backward: the same work), summed over the pass. Returns
+    (worst float32 error, float32 timing sums)."""
+    from stylegan_directions_face_reenactment_tpu_torch.ops.fused_conv_block import (
+        fused_conv_block, fused_conv_block_bwd)
+    bw, flops, bf16_flops = card_rates(card_name)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    worst, timing = 0.0, None
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype)[6:]
+        rate = flops if dtype == torch.float32 else bf16_flops
+        t = {"library_ms": None}
+        for shape, n, x, args in k3_inputs(dtype, gen, GRAD_BATCH):
+            g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            leaves, largs = k3_leaves(x, args)
+            got = torch.autograd.grad(fused_conv_block(leaves[0], largs), leaves, g)
+            want = plain_grads(x, args, g)
+            torch.cuda.synchronize()
+            tol = K3_F32_TOL if dtype == torch.float32 else BF16_TOL
+            errs = [(max_err(a, b), tol * max(1.0, float(b.float().abs().max())))
+                    for a, b in zip(got, want)]
+            err = max(e for e, _ in errs)
+            ratio = max(e / li for e, li in errs)
+            print(f"[parity] fused_conv_block_bwd {shape} {tag}: gradients of x and the 9 "
+                  f"folds and weights against plain autograd, max abs err {err:.3g}; worst "
+                  f"err/limit {ratio:.3g} (limit {tol:g}·max(1, max|plain|) a tensor)")
+            need(ratio <= 1.0,
+                 f"fused_conv_block_bwd {shape} {dtype} disagrees with plain autograd")
+            if dtype == torch.float32:
+                worst = max(worst, err)
+            needs = (True,) * 10
+            weights = sum(w.numel() for w in args.w) + 2 * (256 + 128 + 64)
+            nbytes = (3 * x.numel() + 2 * weights) * x.element_size()
+            ops = 2 * K3_FLOP_PER_PIXEL * shape[0] * shape[2] * shape[3]
+            bound = 1e3 * max(nbytes / bw, ops / rate)
+            ms, host, call_ms = three_times(lambda: fused_conv_block_bwd(g, x, args, needs))
+            plain, plain_host, plain_call = three_times(lambda: plain_grads(x, args, g))
+            print(f"[timing] fused_conv_block_bwd {shape} {tag} x{n} a FAN pass: device "
+                  f"{ms:.4f} ms, host {host:.2f} us, call {call_ms:.4f} ms; autograd through "
+                  f"the cuDNN composition (forward and backward) device {plain:.4f} ms, host "
+                  f"{plain_host:.2f} us, call {plain_call:.4f} ms; bound {bound:.4f} ms")
+            add(t, ms=n * ms, host_us=n * host, call_ms=n * call_ms, plain_ms=n * plain,
+                plain_call_ms=n * plain_call, bound_ms=n * bound, bytes=n * nbytes,
+                ops=n * ops)
+        print_sums(f"[timing] fused_conv_block_bwd per FAN pass over {GRAD_BATCH} crops, "
+                   f"{tag} (plain = autograd's forward and backward through cuDNN)", t, bw)
+        if dtype == torch.float32:
+            timing = t
+    return worst, timing
+
+
+def grad_frames(n, seed):
+    """n black 256² [0, 1] frames with a textured 96² patch each."""
+    rs = np.random.RandomState(seed)
+    f = np.zeros((n, 256, 256, 3), np.float32)
+    for i in range(n):
+        top, left = rs.randint(16, 144, 2)
+        f[i, top:top + 96, left:left + 96] = rs.rand(96, 96, 3)
+    return torch.from_numpy(f)
+
+
+def grad_fan(damp):
+    """[grad]'s FAN on the CPU: seeded, 4 modules, batch norms randomized,
+    every convolution's weight scaled by ``damp``."""
+    from stylegan_directions_face_reenactment_tpu_torch.weights import init_fan
+    fan = init_fan(6, 4, device="cpu")
+    randomize_bn(fan, 9)
+    with torch.no_grad():
+        for m in fan.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                m.weight.mul_(damp)
+    return fan
+
+
+def phase_grad():
+    """Images that need a gradient, on the card, through the DECA aligner
+    and through FAN: (1) ``make_fan_align(fan, s3fd)`` on GRAD_BATCH 256²
+    frames: one FAN pass (K3 56 times, forward only: detection, FAN and the
+    landmarks are constants to autograd); the gradient of a fixed projection
+    of the aligned crops against the CPU's gradient of ``landmark_align``
+    with the card's landmarks (the warp alone carries it; an argmax that
+    flips between devices cannot move it); no S3FD or FAN ``.grad``. (2)
+    ``estimate_landmarks`` straight on the frames (FAN's crops are not
+    stopped, as in the JAX package): the gradient of a projection of the
+    heatmaps reaches the frames through K3's backward (56 K3, 56 K3-bwd),
+    against the CPU's, with ``.backward()``: FAN's parameters get their
+    ``.grad`` (through K3-bwd on the card; printed beside the CPU's) and
+    S3FD's none. S3FD is gated on content as in the CLI phase; FAN's batch
+    norms are randomized and its conv weights scaled by GRAD_FAN_DAMP
+    (:func:`grad_witness` shows why)."""
+    from stylegan_directions_face_reenactment_tpu_torch.models.face.landmarks import (
+        estimate_landmarks)
+    from stylegan_directions_face_reenactment_tpu_torch.pipeline.alignment import (
+        DECA_CROP, landmark_align, make_fan_align)
+    from stylegan_directions_face_reenactment_tpu_torch.weights import init_s3fd
+    sfd_cpu, fan_cpu = init_s3fd(5, device="cpu"), grad_fan(GRAD_FAN_DAMP)
+    gate_s3fd_on_content(sfd_cpu)
+    sfd, fan = copy.deepcopy(sfd_cpu).cuda(), copy.deepcopy(fan_cpu).cuda()
+    frames = grad_frames(GRAD_BATCH, 60)
+    rs = np.random.RandomState(61)
+    proj = torch.from_numpy(rs.randn(GRAD_BATCH, DECA_CROP, DECA_CROP, 3).astype(np.float32))
+
+    x = frames.cuda().detach().requires_grad_()
+    torch.cuda.synchronize()
+    reset_counts()
+    aligned, ok = make_fan_align(fan, sfd, return_ok=True)(x)
+    (aligned * proj.cuda()).sum().backward()
+    torch.cuda.synchronize()
+    got1 = read_all_counts()
+    with torch.no_grad():
+        lms, ok_lms, _ = estimate_landmarks(sfd, fan, frames.cuda() * 255.0, detector_input="fa")
+    xc = frames.detach().clone().requires_grad_()
+    (landmark_align(xc, lms.cpu(), ok_lms.cpu())[0] * proj).sum().backward()
+    want, card = xc.grad, x.grad.cpu()
+    ok_grad = allclose_scaled(card, want, GRAD_RTOL, GRAD_ATOL)
+    print(f"[grad] (1) make_fan_align(fan, s3fd) on {GRAD_BATCH} 256² frames needing a "
+          f"gradient: faces {int(ok.sum())} of {GRAD_BATCH}, ok mask as the card's landmark "
+          f"pass: {bool(torch.equal(ok.cpu(), ok_lms.cpu()))}; d(projection)/d(frames) max "
+          f"|card - CPU| {max_err(card, want):.3g} of max {float(want.abs().max()):.3g} "
+          f"(rtol {GRAD_RTOL}, atol {GRAD_ATOL}·max: {ok_grad}); launches K3 {got1['K3']}, "
+          f"K3-bwd {got1['K3-bwd']}")
+    need(ok_grad and torch.equal(ok.cpu(), ok_lms.cpu()),
+         "the card's aligner gradient disagrees with the CPU's")
+    need(got1["K3"] == K3_PER_PASS and got1["K3-bwd"] == 0,
+         f"make_fan_align launches {got1}, expected K3 {K3_PER_PASS} and no K3-bwd")
+    need(all(p.grad is None for net in (sfd, fan) for p in net.parameters()),
+         "an S3FD or FAN parameter got a gradient through the aligner")
+
+    hproj = torch.from_numpy(rs.randn(GRAD_BATCH, 64, 64, 68).astype(np.float32))
+
+    def heat_grad(sfd_, fan_, im):
+        im = im.detach().clone().requires_grad_()
+        heat = estimate_landmarks(sfd_, fan_, im * 255.0, detector_input="fa")[2]
+        (heat * hproj.to(im.device)).sum().backward()
+        return im.grad
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    card = heat_grad(sfd, fan, frames.cuda()).cpu()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got2 = read_all_counts()
+    want = heat_grad(sfd_cpu, fan_cpu, frames)
+    ok_grad = allclose_scaled(card, want, GRAD_RTOL, GRAD_ATOL)
+    pairs = [(n, pc.grad, pg.grad) for (n, pc), pg in zip(fan_cpu.named_parameters(),
+                                                          fan.parameters())]
+    need(all(w is not None and g is not None for _, w, g in pairs),
+         "a FAN parameter got no gradient through estimate_landmarks' crops")
+    w_ratio, w_name = max((float(((g.cpu() - w).abs() / (GRAD_ATOL * float(w.abs().max())
+                                                        + GRAD_RTOL * w.abs())).max()), n)
+                          for n, w, g in pairs if float(w.abs().max()) > 0)
+    print(f"[grad] (2) estimate_landmarks on the same frames: d(heatmap projection)/d(frames) "
+          f"through FAN max |card - CPU| {max_err(card, want):.3g} of max "
+          f"{float(want.abs().max()):.3g} (rtol {GRAD_RTOL}, atol {GRAD_ATOL}·max: {ok_grad}); "
+          f"launches K3 {got2['K3']}, K3-bwd {got2['K3-bwd']}; {1e3 * wall:.1f} ms (first call)")
+    print(f"[grad] (2) FAN's {len(pairs)} parameter gradients (.grad; K3-bwd on the card), not "
+          f"held: worst |card - CPU| / (atol + rtol·|CPU|) of a tensor {w_ratio:.3g} ({w_name}; "
+          f"K3-bwd's own gradients are held in [parity]); S3FD's none")
+    need(ok_grad, "the card's FAN gradient disagrees with the CPU's")
+    need(got2["K3"] == K3_PER_PASS and got2["K3-bwd"] == K3_PER_PASS,
+         f"estimate_landmarks backward launches {got2}, expected K3 and K3-bwd {K3_PER_PASS}")
+    need(all(p.grad is None for net in (sfd, sfd_cpu) for p in net.parameters()),
+         "an S3FD parameter got a gradient through estimate_landmarks")
+    grad_witness(frames, hproj, sfd_cpu)
+    return {"K3": got1["K3"] + got2["K3"], "K3-bwd": got1["K3-bwd"] + got2["K3-bwd"]}
+
+
+def grad_witness(frames, hproj, sfd_cpu):
+    """Why [grad] scales FAN's convolutions: [grad] (2)'s gradient, d(heatmap
+    projection)/d(frames) through ``estimate_landmarks``, undamped and at
+    GRAD_FAN_DAMP, through four float32 paths against the CPU's float64
+    (S3FD and FAN in float64, ``compute_dtype``): the card as served (K3
+    forward, K3-bwd), the card with cuDNN's composition
+    (``fused_conv_block_plain``) in place of the K3 forward (K3-bwd kept),
+    the card's plain FAN (K3 off: cuDNN forward, autograd backward), and
+    the CPU; and the card's paths against the CPU's float32, as [grad] (2)
+    holds them. A ReLU input that rounds to the other side of 0 in one path
+    moves that path's gradient of the random FAN by up to percents of its
+    max; K3 is at fault only if its reading stands out. Prints the
+    readings, holds none."""
+    from stylegan_directions_face_reenactment_tpu_torch.models.face import fan as fan_mod
+    from stylegan_directions_face_reenactment_tpu_torch.models.face.landmarks import (
+        estimate_landmarks)
+    from stylegan_directions_face_reenactment_tpu_torch.ops import fused_conv_block as k3
+    sfd_card, sfd64 = copy.deepcopy(sfd_cpu).cuda(), copy.deepcopy(sfd_cpu).double()
+
+    def heat_grad(sfd_, fan_, im, dtype=None):
+        im = im.detach().clone().requires_grad_()
+        heat = estimate_landmarks(sfd_, fan_, im * 255.0, compute_dtype=dtype,
+                                  detector_input="fa")[2]
+        (g,) = torch.autograd.grad((heat * hproj.to(heat.device)).sum(), im)
+        return g.double().cpu()
+
+    plain = lambda x, args, keep=True: k3.fused_conv_block_plain(x, args)  # noqa: E731
+    for damp in (1.0, GRAD_FAN_DAMP):
+        fan_cpu = grad_fan(damp)
+        fan_card = copy.deepcopy(fan_cpu).cuda()
+        ref = heat_grad(sfd64, copy.deepcopy(fan_cpu).double(), frames.double(), torch.float64)
+        cpu32 = heat_grad(sfd_cpu, fan_cpu, frames)
+        got = {"card K3": heat_grad(sfd_card, fan_card, frames.cuda())}
+        with mock.patch.object(k3, "fused_conv_block_cuda", plain):
+            got["card cuDNN forward, K3-bwd"] = heat_grad(sfd_card, fan_card, frames.cuda())
+        with mock.patch.object(fan_mod, "fused_convblock_enabled", lambda p, x: False):
+            got["card plain FAN"] = heat_grad(sfd_card, fan_card, frames.cuda())
+        scale, scale32 = float(ref.abs().max()), float(cpu32.abs().max())
+        print(f"[grad] witness, FAN convs x{damp:g}, [grad] (2)'s frames: max |float32 path - "
+              f"CPU float64| / max {scale:.3g}: "
+              + ", ".join(f"{k} {float((v - ref).abs().max()) / scale:.3g}"
+                          for k, v in list(got.items()) + [("CPU", cpu32)])
+              + "; max |card path - CPU float32| / max: "
+              + ", ".join(f"{k} {float((v - cpu32).abs().max()) / scale32:.3g}"
+                          for k, v in got.items()))
+
+
+def phase_flame():
+    """FLAME decode (``deca_decode``) at B = FLAME_BATCH on the seeded DECA's
+    synthetic FLAME (5023 vertices, 9976 faces): card against the CPU, float32,
+    and its time (CUDA events, median of 20 calls after a warm-up)."""
+    from stylegan_directions_face_reenactment_tpu_torch.models.deca import deca_decode
+    from stylegan_directions_face_reenactment_tpu_torch.weights import init_deca
+    deca_cpu = init_deca(2, device="cpu")
+    deca = copy.deepcopy(deca_cpu).cuda()
+    rs = np.random.RandomState(70)
+    cd = {"shape": rs.randn(FLAME_BATCH, 100), "exp": rs.randn(FLAME_BATCH, 50),
+          "pose": 0.3 * rs.randn(FLAME_BATCH, 6), "cam": 1 + np.abs(rs.randn(FLAME_BATCH, 3))}
+    cd = {k: torch.from_numpy(v.astype(np.float32)) for k, v in cd.items()}
+    cd_card = {k: v.cuda() for k, v in cd.items()}
+    with torch.no_grad():
+        got = [t.cpu() for t in deca_decode(deca, cd_card)]
+        want = deca_decode(deca_cpu, cd)
+        times = []
+        for _ in range(21):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            deca_decode(deca, cd_card)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+    ms = statistics.median(times[1:])
+    ok = all(allclose_scaled(a, b, FLAME_RTOL, FLAME_ATOL) and a.shape == b.shape
+             for a, b in zip(got, want))
+    print(f"[flame] deca_decode at B = {FLAME_BATCH} on FLAME of "
+          f"{deca.flame.v_template.shape[0]} vertices, {deca.flame.faces.shape[0]} faces: "
+          f"landmarks2d {tuple(got[0].shape)}, landmarks3d {tuple(got[1].shape)}, vertices "
+          f"{tuple(got[2].shape)}; max |card - CPU| "
+          + ", ".join(f"{max_err(a, b):.3g}" for a, b in zip(got, want))
+          + f" (rtol {FLAME_RTOL}, atol {FLAME_ATOL}·max: {ok}); {ms:.3f} ms a call "
+          f"({min(times[1:]):.3f}-{max(times[1:]):.3f})")
+    need(ok and all(bool(torch.isfinite(t).all()) for t in got),
+         "FLAME decode on the card disagrees with the CPU")
+    return ms
+
+
 def phase_slice():
     from stylegan_directions_face_reenactment_tpu_torch.geometry import (
         initialize_directions, make_shift_vector)
@@ -924,8 +1225,14 @@ def bwd_counts():
     return (upfirdn2d_bwd_cuda, fused_bias_act_bwd_cuda)
 
 
+def k3_bwd():
+    from stylegan_directions_face_reenactment_tpu_torch.ops.fused_conv_block import (
+        fused_conv_block_bwd)
+    return fused_conv_block_bwd
+
+
 def reset_counts():
-    for k in counts() + bwd_counts():
+    for k in counts() + bwd_counts() + (k3_bwd(),):
         k.launches = 0
     bwd_counts()[0].down2_launches = 0
 
@@ -1517,6 +1824,7 @@ def write_cli_inputs():
     from PIL import Image
 
     from stylegan_directions_face_reenactment_tpu_torch.configs import AUX_MODELS, MODELS
+    from stylegan_directions_face_reenactment_tpu_torch.weights import write_flame_files
     g, a, deca, sfd, fan, e4e, lp = build_slice3_nets("cpu")
     gate_s3fd_on_content(sfd)
     randomize_bn(fan, 9)
@@ -1533,6 +1841,7 @@ def write_cli_inputs():
     torch.save({"state_dict": fan.state_dict()}, AUX_MODELS["fan_2d"])
     torch.save({"alex_features": lp.net.layers.state_dict(), "lin": lp.lin.state_dict()},
                AUX_MODELS["lpips_alex"])
+    write_flame_files(AUX_MODELS["flame"], AUX_MODELS["flame_landmarks"])
 
     # the face lands about 30 px above the patch and its FFHQ box is about
     # 64 px: patches from 120 px below the top edge keep it in the frame
@@ -1551,10 +1860,10 @@ def write_cli_inputs():
 
 
 def read_all_counts():
-    """(K1, K1 backward, of which down 2, K2, K2-bwd, K3) launches."""
+    """(K1, K1 backward, of which down 2, K2, K2-bwd, K3, K3-bwd) launches."""
     fwd, bwd = read_counts(), read_bwd_counts()
     return {"K1": fwd[0], "K1-bwd": bwd[0], "K1-bwd down 2": bwd[1], "K2": fwd[1],
-            "K2-bwd": bwd[2], "K3": fwd[2]}
+            "K2-bwd": bwd[2], "K3": fwd[2], "K3-bwd": k3_bwd().launches}
 
 
 def phase_cli(smi):
@@ -1564,7 +1873,8 @@ def phase_cli(smi):
     from stylegan_directions_face_reenactment_tpu_torch.cli import model_loading
     from stylegan_directions_face_reenactment_tpu_torch.cli import run_inference as cli
     from stylegan_directions_face_reenactment_tpu_torch.geometry import initialize_directions
-    from stylegan_directions_face_reenactment_tpu_torch.native import video_library
+    from stylegan_directions_face_reenactment_tpu_torch.native import (
+        extract_frames)
     from stylegan_directions_face_reenactment_tpu_torch.ops.main_path import (
         fused_bias_act_calls, pti_backward_calls, upfirdn2d_calls)
     from stylegan_directions_face_reenactment_tpu_torch.pipeline import make_fused_reenact_fn
@@ -1580,16 +1890,6 @@ def phase_cli(smi):
     for i in range(CLI_WINDOW):
         os.symlink(os.path.join(targets, in_frame[i % len(in_frame)]),
                    os.path.join(window, f"{i:03d}.png"))
-    try:
-        video_library()
-        video = ["--save_video"]
-        print("[cli] the libav video library built: run (a) writes the video")
-    except RuntimeError as e:
-        video = ["--no-save_video"]
-        lines = str(e).splitlines()
-        why = next((line for line in lines if "error" in line), lines[-1])
-        print(f"[cli] the libav video library did not build on this machine, so no run "
-              f"writes a video: {why[:200]}")
 
     pti = pti_backward_calls(SIZE, CM)
     k1, k2 = len(upfirdn2d_calls(SIZE, CM, 1)), len(fused_bias_act_calls(SIZE, CM, 1))
@@ -1607,7 +1907,8 @@ def phase_cli(smi):
                 "K1-bwd down 2": pti_steps * k1b_down2,
                 "K2": n_mlp + pti_steps * k2 + calls * k2,
                 "K2-bwd": pti_steps * len(pti.fused_bias_act),
-                "K3": 2 * K3_PER_PASS + chunks * k3_chunk + fallback_calls * K3_PER_PASS}
+                "K3": 2 * K3_PER_PASS + chunks * k3_chunk + fallback_calls * K3_PER_PASS,
+                "K3-bwd": 0}
 
     kept = {}
     real_setup = cli.setup_source
@@ -1618,7 +1919,8 @@ def phase_cli(smi):
         return out
 
     # tag: (flags, PTI steps, K3 launches a chunk, targets)
-    runs = {"a": (video + ["--save_images", "--save_grid"], PTI_STEPS, K3_PER_REQUEST, targets),
+    runs = {"a": (["--save_video", "--save_images", "--save_grid"], PTI_STEPS, K3_PER_REQUEST,
+                  targets),
             "b": (["--compute_dtype", "bfloat16", "--reuse_landmarks", "--video_content",
                    "reenact", "--no-optimize_generator", "--no-save_video", "--save_images"],
                   0, K3_PER_PASS, targets),
@@ -1651,7 +1953,7 @@ def phase_cli(smi):
                   f"in {stats.get('fallback_calls', 0)} call(s)")
             print(f"[cli] run ({tag}) target loop by part (host clock, s): "
                   + ", ".join(f"{k[:-2]} {v:.3f}" for k, v in stats.items()
-                              if k.endswith("_s") and k != "target_s"))
+                              if k.endswith("_s") and k not in ("target_s", "video_s")))
             print(f"[cli] run ({tag}) launches: "
                   + ", ".join(f"{k} {got[k]} (expected {want[k]})" for k in got))
             need(got == want, f"CLI run ({tag}): launches {got}, expected {want}")
@@ -1666,8 +1968,12 @@ def phase_cli(smi):
                 cell = np.asarray(Image.open(os.path.join(out, "grids", pngs[0])))
                 need(cell.shape == (256, 3 * 256, 3), f"CLI run ({tag}): grid {cell.shape}")
             if "--save_video" in flags:
-                need(os.path.getsize(os.path.join(out, "generated_video.mp4")) > 0,
-                     f"CLI run ({tag}): no video")
+                video = extract_frames(os.path.join(out, "generated_video.mp4"))
+                print(f"[cli] run ({tag}) video through OpenCV (mp4v): written in "
+                      f"{stats['video_s']:.3f} s (host clock, after the target loop), "
+                      f"{len(video)} frames of {video[0].shape} read back")
+                need(len(video) in (n_frames, n_frames + 1) and video[0].shape == (256, 768, 3),
+                     f"CLI run ({tag}): the video holds {len(video)} frames")
             first = np.asarray(Image.open(os.path.join(out, pngs[0])))
             need(first.shape == (SIZE, SIZE, 3), f"CLI run ({tag}): frame {first.shape}")
             print(f"[cli] run ({tag}) wrote {len(files)} entries: {n_frames} frames "
@@ -1703,6 +2009,200 @@ def phase_cli(smi):
     return results, totals
 
 
+def phase_edit(smi):
+    """``cli/run_facial_editing.py::main`` on the card at full width, on the
+    CLI phase's checkpoint files (and its FLAME files), directions 0 3 4
+    (yaw, jaw, the first expression) at the default 10 shifts a side: (a)
+    the 562x1000 source PNG (SFD → FAN → FFHQ crop, e4e, 200 PTI steps, the
+    source's ``fan`` DECA alignment) with ``--optimize_generator
+    --save_gif``; (b) a ``.npy`` W+ code; (c) a random z. Each run's launches
+    of every kernel against what its source and sweeps should launch, the
+    file layout, and run (a)'s first sweep against a direct
+    ``sweep_direction`` call; then the images/s of one direct sweep."""
+    from PIL import Image
+
+    from stylegan_directions_face_reenactment_tpu_torch.cli import model_loading
+    from stylegan_directions_face_reenactment_tpu_torch.cli import run_facial_editing as cli
+    from stylegan_directions_face_reenactment_tpu_torch.geometry import initialize_directions
+    from stylegan_directions_face_reenactment_tpu_torch.ops.main_path import (
+        fused_bias_act_calls, pti_backward_calls, upfirdn2d_calls)
+    from stylegan_directions_face_reenactment_tpu_torch.pipeline import sweep_direction
+
+    source = os.path.join(CLI_DIR, "source.png")
+    code = os.path.join(CLI_DIR, "code.npy")
+    np.save(code, (0.5 * np.random.RandomState(80).randn(14, 512)).astype(np.float32))
+    pti = pti_backward_calls(SIZE, CM)
+    k1, k2 = len(upfirdn2d_calls(SIZE, CM, 1)), len(fused_bias_act_calls(SIZE, CM, 1))
+    n_mlp = MODELS["voxceleb"]["n_mlp"]
+    directions = ["0", "3", "4"]
+
+    def expected(pti_steps, kind):
+        """The mean latent's mapping (K2 a layer), a random z's mapping, the
+        synthesis of a code or z source, the PTI steps, an image source's
+        FAN pass and the source's DECA alignment (K3 56 each), one
+        synthesis a sweep."""
+        synth = len(directions) + (kind != "image")
+        return {"K1": pti_steps * k1 + synth * k1,
+                "K1-bwd": pti_steps * len(pti.upfirdn2d),
+                "K1-bwd down 2": pti_steps * sum(c.up == 2 for c in pti.upfirdn2d),
+                "K2": n_mlp * (1 + (kind == "z")) + pti_steps * k2 + synth * k2,
+                "K2-bwd": pti_steps * len(pti.fused_bias_act),
+                "K3": K3_PER_PASS * (1 + (kind == "image")), "K3-bwd": 0}
+
+    runs = {"a": (["--source_path", source, "--optimize_generator", "--save_gif"], "image",
+                  PTI_STEPS),
+            "b": (["--source_path", code], "npy", 0),
+            "c": (["--seed", "5"], "z", 0)}
+    totals, results = Counter(), {}
+    for tag, (flags, source_kind, steps) in runs.items():
+        out = os.path.join(CLI_DIR, f"edit_{tag}")
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = cli.main(["--output_path", out, "--directions", *directions] + flags)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = read_all_counts()
+        want = expected(steps, source_kind)
+        n_img = sum(len(v) for v in res["sweeps"].values())
+        print(f"[edit] run ({tag}) {source_kind} source {' '.join(flags[2:])}: wall {wall:.3f} s "
+              f"(host clock, synchronized) for {n_img} images in {len(res['sweeps'])} sweeps "
+              f"({', '.join(f'{k} {len(v)}' for k, v in res['sweeps'].items())}) on {smi}")
+        print(f"[edit] run ({tag}) launches: "
+              + ", ".join(f"{k} {got[k]} (expected {want[k]})" for k in got))
+        need(got == want, f"editing run ({tag}): launches {got}, expected {want}")
+        totals.update(got)
+        names = sorted(res["sweeps"])
+        need(names == ["exp_00", "jaw", "yaw"], f"editing run ({tag}): sweeps {names}")
+        for name, values in res["sweeps"].items():
+            files = sorted(os.listdir(os.path.join(out, name)))
+            need(files == [f"{name}_{i:03d}.png" for i in range(len(values))],
+                 f"editing run ({tag}): {name}/ holds {files[:3]}...")
+        gifs = sorted(f for f in os.listdir(out) if f.endswith(".gif"))
+        need(gifs == ([f"{n}.gif" for n in names] if "--save_gif" in flags else []),
+             f"editing run ({tag}): GIFs {gifs}")
+        results[tag] = {"wall_s": wall, "images": n_img}
+        if tag == "a":
+            kept = res
+
+    # run (a)'s yaw sweep against a direct call on the same source
+    a = model_loading.load_direction_matrix()
+    trunc = model_loading.compute_trunc(kept["generator"]).cuda()
+    spec = initialize_directions("voxceleb", 15, 6.0)
+
+    def sweep():
+        with torch.no_grad():
+            return sweep_direction(kept["generator"], a, spec, kept["source_code"], 0,
+                                   kept["params_source"], kept["angles_source"],
+                                   truncation=0.7, truncation_latent=trunc)
+
+    name, values, imgs = sweep()
+    imgs = np.clip((imgs.float().cpu().numpy() + 1.0) * 127.5, 0, 255).astype(np.uint8)
+    diff = max(int(np.abs(np.asarray(Image.open(os.path.join(
+        CLI_DIR, "edit_a", name, f"{name}_{i:03d}.png"))).astype(int) - imgs[i]).max())
+        for i in range(len(values)))
+    print(f"[edit] run (a), {name}: its {len(values)} PNGs against a direct sweep_direction "
+          f"call: max |diff| {diff} intensity units (limit {CLI_MAX_DIFF})")
+    need(name == "yaw" and diff <= CLI_MAX_DIFF, "the editing CLI disagrees with the direct sweep")
+    sweep()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        sweep()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    t = statistics.median(times)
+    results["sweep_ips"] = len(values) / t
+    print(f"[edit] one sweep of {len(values)} images at {SIZE}² (shift, synthesis, float32): "
+          f"{1e3 * t:.2f} ms, {len(values) / t:.2f} images/s (median of 5, host clock, "
+          f"synchronized; {1e3 * min(times):.2f}-{1e3 * max(times):.2f} ms) on {smi}")
+    return results, totals
+
+
+def phase_invert(smi):
+    """``cli/invert_images.py::main`` on the card at full width on a tree of
+    INVERT_IDS x INVERT_VIDEOS x INVERT_FRAMES 256² PNGs, batch INVERT_BATCH:
+    launches, layout, the codes and frames against a direct
+    ``make_invert_fn`` on the same batches; then the images/s of that
+    function over the tree."""
+    from PIL import Image
+
+    from stylegan_directions_face_reenactment_tpu_torch.cli import invert_images as cli
+    from stylegan_directions_face_reenactment_tpu_torch.cli import model_loading
+    from stylegan_directions_face_reenactment_tpu_torch.data import DatasetInversion
+    from stylegan_directions_face_reenactment_tpu_torch.ops.main_path import (
+        fused_bias_act_calls, upfirdn2d_calls)
+    from stylegan_directions_face_reenactment_tpu_torch.pipeline import make_invert_fn
+
+    root = os.path.join(CLI_DIR, "vox")
+    rs = np.random.RandomState(90)
+    for i in range(INVERT_IDS):
+        for v in range(INVERT_VIDEOS):
+            d = os.path.join(root, f"id{i:05d}", f"video{v}", "frames_cropped")
+            os.makedirs(d)
+            for f in range(INVERT_FRAMES):
+                Image.fromarray(rs.randint(0, 256, (SIZE, SIZE, 3)).astype(np.uint8)).save(
+                    os.path.join(d, f"{f:05d}.png"))
+    n = INVERT_IDS * INVERT_VIDEOS * INVERT_FRAMES
+    batches = -(-n // INVERT_BATCH)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = cli.main(["--dataset_path", root, "--batch_size", str(INVERT_BATCH)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = read_all_counts()
+    n_mlp = MODELS["voxceleb"]["n_mlp"]
+    k1, k2 = len(upfirdn2d_calls(SIZE, CM, 1)), len(fused_bias_act_calls(SIZE, CM, 1))
+    want = {"K1": batches * k1, "K1-bwd": 0, "K1-bwd down 2": 0,
+            "K2": n_mlp + batches * k2, "K2-bwd": 0, "K3": 0, "K3-bwd": 0}
+    print(f"[invert] {n} frames in {res['batches']} batches of {INVERT_BATCH}: wall "
+          f"{wall:.3f} s (host clock, synchronized, loading included) on {smi}; launches "
+          + ", ".join(f"{k} {got[k]} (expected {want[k]})" for k in got))
+    need(res == {"frames": n, "batches": batches} and got == want,
+         f"inversion: {res}, launches {got}, expected {want}")
+
+    g = model_loading.load_generator()
+    invert = make_invert_fn(model_loading.load_e4e(), g, truncation=0.7,
+                            truncation_latent=model_loading.compute_trunc(g))
+    ds = DatasetInversion(root, image_size=SIZE)
+    images = np.stack([ds[i]["image"] for i in range(n)])
+    worst_code, worst_png = 0.0, 0
+    for b in range(batches):
+        sl = slice(b * INVERT_BATCH, (b + 1) * INVERT_BATCH)
+        inv, codes = (t.float().cpu().numpy() for t in invert(images[sl]))
+        for j, e in enumerate(ds.entries[sl]):
+            vdir = os.path.dirname(os.path.dirname(e["path"]))
+            stored = np.load(os.path.join(vdir, "inversion", "latent_codes",
+                                          e["filename"] + ".npy"))
+            need(stored.shape == codes[j].shape and allclose_scaled(
+                torch.from_numpy(stored), torch.from_numpy(codes[j]), 1e-4, 1e-4),
+                f"inversion: code of {e['path']} disagrees with the direct call")
+            worst_code = max(worst_code, float(np.abs(stored - codes[j]).max()))
+            png = np.asarray(Image.open(os.path.join(vdir, "inversion", "frames",
+                                                     e["filename"] + ".png"))).astype(int)
+            direct = np.clip((inv[j] + 1.0) * 127.5, 0, 255).astype(np.uint8).astype(int)
+            worst_png = max(worst_png, int(np.abs(png - direct).max()))
+    print(f"[invert] against a direct make_invert_fn on the same batches: codes max |diff| "
+          f"{worst_code:.3g} (rtol 1e-4, atol 1e-4·max), frames max |diff| {worst_png} "
+          f"intensity units (limit {CLI_MAX_DIFF})")
+    need(worst_png <= CLI_MAX_DIFF, "inversion: frames disagree with the direct call")
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for b in range(batches):
+            invert(images[b * INVERT_BATCH:(b + 1) * INVERT_BATCH])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    t = statistics.median(times)
+    print(f"[invert] make_invert_fn over the {n} frames in batches of {INVERT_BATCH} (e4e, "
+          f"synthesis, float32, host arrays in): {n / t:.2f} images/s (median of 3, host "
+          f"clock, synchronized; {n / max(times):.2f}-{n / min(times):.2f}) on {smi}")
+    return {"wall_s": wall, "ips": n / t}, got
+
+
 def main():
     name, smi = phase_device()
     torch.backends.cudnn.allow_tf32 = False
@@ -1719,8 +2219,15 @@ def main():
     times3, fwd3, bwd3 = phase_slice3()
     try:
         cli, cli_launches = phase_cli(smi)
+        edit, edit_launches = phase_edit(smi)
+        invert, invert_launches = phase_invert(smi)
     finally:
         shutil.rmtree(CLI_DIR, ignore_errors=True)
+    # after the phases PR 5 recorded, so that their readings keep its conditions
+    worst["fused_conv_block_bwd"], timing[("fused_conv_block_bwd", "float32")] = (
+        phase_k3_bwd(name))
+    grad_launches = phase_grad()
+    flame_ms = phase_flame()
     for label, res in (("slice 1, resize path", results),
                        ("slice 2, default path, 562x1000 raw frames", results2)):
         for tag, r in res.items():
@@ -1734,11 +2241,21 @@ def main():
           f"{times3['deca_ms']:.3f} ms, peak {times3['peak_bytes']} bytes on {smi}")
     for tag, r in cli.items():
         print(f"[result] CLI run ({tag}): wall {r['wall_s']:.3f} s, target loop "
-              f"{r['target_fps']:.2f} frames/s over {r['frames']} frames on {smi}")
-    launches = [launches[0] + launches2[0] + fwd3[0] + cli_launches["K1"],
-                launches[1] + launches2[1] + fwd3[1] + cli_launches["K2"],
-                launches2[2] + fwd3[2] + cli_launches["K3"], bwd3[0] + cli_launches["K1-bwd"],
-                bwd3[2] + cli_launches["K2-bwd"]]
+              f"{r['target_fps']:.2f} frames/s over {r['frames']} frames"
+              + (f", video write {r['video_s']:.3f} s" if "video_s" in r else "")
+              + f" on {smi}")
+    print(f"[result] FLAME decode at B = {FLAME_BATCH}: {flame_ms:.3f} ms; editing sweep "
+          f"{edit['sweep_ips']:.2f} images/s; editing walls "
+          + ", ".join(f"({k}) {edit[k]['wall_s']:.3f} s" for k in "abc")
+          + f"; inversion {invert['ips']:.2f} images/s, CLI wall {invert['wall_s']:.3f} s "
+          f"on {smi}")
+    apps = (cli_launches, edit_launches, invert_launches)
+    launches = [launches[0] + launches2[0] + fwd3[0] + sum(c["K1"] for c in apps),
+                launches[1] + launches2[1] + fwd3[1] + sum(c["K2"] for c in apps),
+                launches2[2] + fwd3[2] + grad_launches["K3"] + sum(c["K3"] for c in apps),
+                bwd3[0] + sum(c["K1-bwd"] for c in apps),
+                bwd3[2] + sum(c["K2-bwd"] for c in apps),
+                grad_launches["K3-bwd"]]
     need(all(n > 0 for n in launches) and bwd3[1] > 0,
          f"a kernel of the main paths never launched: {launches}, K1 down 2 {bwd3[1]}")
 
@@ -1758,7 +2275,10 @@ def main():
              launches[4]),
             ("fused_conv_block", "cuda", f"{PORT}/csrc/fused_conv_block.cu",
              "stylegan_directions_face_reenactment_tpu/ops/fused_conv_block.py:146",
-             launches[2])):
+             launches[2]),
+            ("fused_conv_block_bwd", "cuda", f"{PORT}/ops/fused_conv_block.py",
+             "stylegan_directions_face_reenactment_tpu/ops/fused_conv_block.py:187",
+             launches[5])):
         t = timing[(name_k, "float32")]
         kernels.append({
             "name": name_k, "route": route, "source": source, "replaces": replaces,

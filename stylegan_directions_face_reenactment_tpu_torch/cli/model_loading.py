@@ -13,8 +13,9 @@ reference's modulated-conv weights carry a leading axis of 1 that the
 port's do not. ``random_init`` builds the seeded weights of ``weights/``
 instead.
 
-The DECA file's ``E_flame`` is the only part read: the port's DECA is the
-encoder, and the FLAME files wait for the modules that read them.
+DECA is the DECA file's ``E_flame`` with the FLAME model read from
+``generic_model.pkl`` and ``landmark_embedding.npy``
+(``weights/flame_loader.py``).
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ from ..models.face.s3fd import S3FD
 from ..models.stylegan2 import Generator, mean_latent
 from ..utils.device import DeviceLike, resolve_device
 from ..weights import (init_deca, init_direction_matrix, init_e4e, init_fan,
-                       init_generator, init_lpips, init_s3fd)
+                       init_generator, init_lpips, init_s3fd, load_flame_params)
 
 
 def _torch_load(path: str):
@@ -112,11 +113,13 @@ def load_direction_matrix(dataset_type: str = "voxceleb", path: Optional[str] = 
     return load_into(a, {k: v.float() for k, v in sd.items()}).to(resolve_device(device))
 
 
-def load_deca(path: Optional[str] = None, random_init: bool = False, seed: int = 3,
-              device: DeviceLike = None) -> DECA:
+def load_deca(path: Optional[str] = None, flame_path: Optional[str] = None,
+              flame_lmk_path: Optional[str] = None, random_init: bool = False,
+              seed: int = 3, device: DeviceLike = None) -> DECA:
     if random_init:
         return init_deca(seed, device=device)
-    deca = DECA()
+    deca = DECA(load_flame_params(flame_path or AUX_MODELS["flame"],
+                                  flame_lmk_path or AUX_MODELS["flame_landmarks"]))
     load_into(deca.E_flame, _torch_load(path or AUX_MODELS["deca"])["E_flame"])
     return deca.to(resolve_device(device))
 

@@ -1,5 +1,5 @@
-from .directions import (DirectionsSpec, initialize_directions,
+from .directions import (DirectionsSpec, get_direction_info, initialize_directions,
                          make_shift_vector, start_positions)
 
-__all__ = ["DirectionsSpec", "initialize_directions", "make_shift_vector",
-           "start_positions"]
+__all__ = ["DirectionsSpec", "get_direction_info", "initialize_directions",
+           "make_shift_vector", "start_positions"]

@@ -147,3 +147,35 @@ def make_shift_vector(spec: DirectionsSpec,
     """Full-reenactment Δp = start(target) − start(source); (B, k)."""
     return (start_positions(spec, param_target, angles_target)
             - start_positions(spec, param_source, angles_source))
+
+
+def get_direction_info(spec: DirectionsSpec, direction_index: int,
+                       params_source: Dict[str, np.ndarray], angles_source: np.ndarray,
+                       shifts_count: int = 10):
+    """A sweep of one direction for one source sample
+    (``config_directions.py:42-85``): (name, start, min shift, max shift,
+    step). The sweep runs from −shift_scale − start to shift_scale − start
+    in steps of shift_scale / ``shifts_count``; ``params_source`` and
+    ``angles_source`` are the source's coefficients and angles as arrays."""
+    ss = spec.shift_scale
+    pose_dirs = {spec.yaw_direction: ("yaw", 0), spec.pitch_direction: ("pitch", 1),
+                 spec.roll_direction: ("roll", 2)}
+    pose_dirs.pop(-1, None)
+
+    if direction_index in pose_dirs:
+        name, axis = pose_dirs[direction_index]
+        source_angle = float(np.asarray(angles_source).reshape(-1, 3)[0, axis])
+        start = source_angle * ss / spec.angle_scales[axis]
+    elif direction_index == spec.jaw_index:
+        jaw = float(np.asarray(params_source["pose"]).reshape(-1, 6)[0, 3])
+        start = spec.a_jaw * jaw + spec.b_jaw
+        name = "jaw"
+    else:
+        i = direction_index - spec.count_pose
+        if not 0 <= i < spec.num_expressions:
+            raise ValueError(f"unknown direction index {direction_index}")
+        ci = spec.exp_components[i]
+        val = float(np.asarray(params_source["alpha_exp"]).reshape(1, -1)[0, ci])
+        start = spec.exp_a[i] * val + spec.exp_b[i]
+        name = f"exp_{ci:02d}"
+    return name, float(start), float(-ss - start), float(ss - start + 1e-5), ss / shifts_count

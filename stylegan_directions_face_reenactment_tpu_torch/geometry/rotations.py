@@ -1,4 +1,5 @@
-"""Batched rotation converters: the chain the serving slice needs.
+"""Batched rotation converters (euler / axis-angle / quaternion / matrix),
+Rodrigues' formula and the weak-perspective projection of DECA and FLAME.
 
 Conventions of the reference's ``rotation_converter.py``: quaternions are
 (w, x, y, z); :func:`batch_matrix2euler` extracts (x = asin(R[2,0]),
@@ -78,8 +79,59 @@ def quaternion_to_rotation_matrix(q: torch.Tensor) -> torch.Tensor:
     return m.reshape(q.shape[:-1] + (3, 3))
 
 
+def rotation_matrix_to_quaternion(m: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Rotation matrix (B, 3, 3) → quaternion (B, 4), the reference's
+    four-branch form (``rotation_converter.py:92-169``)."""
+    rmat_t = m.transpose(-1, -2)
+    r00, r01, r02 = rmat_t[..., 0, 0], rmat_t[..., 0, 1], rmat_t[..., 0, 2]
+    r10, r11, r12 = rmat_t[..., 1, 0], rmat_t[..., 1, 1], rmat_t[..., 1, 2]
+    r20, r21, r22 = rmat_t[..., 2, 0], rmat_t[..., 2, 1], rmat_t[..., 2, 2]
+
+    mask_d2 = r22 < eps
+    mask_d0_d1 = r00 > r11
+    mask_d0_nd1 = r00 < -r11
+
+    t0 = 1 + r00 - r11 - r22
+    q0 = torch.stack([r12 - r21, t0, r01 + r10, r20 + r02], dim=-1)
+    t1 = 1 - r00 + r11 - r22
+    q1 = torch.stack([r20 - r02, r01 + r10, t1, r12 + r21], dim=-1)
+    t2 = 1 - r00 - r11 + r22
+    q2 = torch.stack([r01 - r10, r20 + r02, r12 + r21, t2], dim=-1)
+    t3 = 1 + r00 + r11 + r22
+    q3 = torch.stack([t3, r12 - r21, r20 - r02, r01 - r10], dim=-1)
+
+    cases = ((mask_d2 & mask_d0_d1, q0, t0), (mask_d2 & ~mask_d0_d1, q1, t1),
+             (~mask_d2 & mask_d0_nd1, q2, t2), (~mask_d2 & ~mask_d0_nd1, q3, t3))
+    q = sum(torch.where(c[..., None], qi / torch.sqrt(torch.clamp_min(t, eps))[..., None],
+                        torch.zeros_like(qi)) for c, qi, t in cases)
+    return q * 0.5
+
+
+def batch_rodrigues(rot_vecs: torch.Tensor) -> torch.Tensor:
+    """Axis-angle (N, 3) → rotation matrices (N, 3, 3) (``lbs.py:274-305``):
+    the angle is the norm of ``rot_vecs + 1e-8``, as the reference's."""
+    angle = torch.linalg.norm(rot_vecs + 1e-8, dim=-1, keepdim=True)
+    rot_dir = rot_vecs / angle
+    cos = torch.cos(angle)[..., None]
+    sin = torch.sin(angle)[..., None]
+    rx, ry, rz = rot_dir[..., 0], rot_dir[..., 1], rot_dir[..., 2]
+    zeros = torch.zeros_like(rx)
+    k = torch.stack([zeros, -rz, ry, rz, zeros, -rx, -ry, rx, zeros],
+                    dim=-1).reshape(rot_vecs.shape[:-1] + (3, 3))
+    ident = torch.eye(3, dtype=rot_vecs.dtype, device=rot_vecs.device)
+    return ident + sin * k + (1 - cos) * torch.matmul(k, k)
+
+
 def batch_euler2axis(r: torch.Tensor) -> torch.Tensor:
     return quaternion_to_angle_axis(euler_to_quaternion(r))
+
+
+def batch_euler2matrix(r: torch.Tensor) -> torch.Tensor:
+    return quaternion_to_rotation_matrix(euler_to_quaternion(r))
+
+
+def batch_matrix2axis(m: torch.Tensor) -> torch.Tensor:
+    return quaternion_to_angle_axis(rotation_matrix_to_quaternion(m))
 
 
 def batch_axis2matrix(theta: torch.Tensor) -> torch.Tensor:
@@ -113,3 +165,11 @@ def batch_matrix2euler(rot_mats: torch.Tensor) -> torch.Tensor:
 
 def batch_axis2euler(theta: torch.Tensor) -> torch.Tensor:
     return batch_matrix2euler(batch_axis2matrix(theta))
+
+
+def batch_orth_proj(x: torch.Tensor, camera: torch.Tensor) -> torch.Tensor:
+    """Weak-perspective projection (``rotation_converter.py:364-372``):
+    x (B, P, 3), camera (B, 3) = [scale, tx, ty] → (B, P, 3)."""
+    cam = camera.reshape(-1, 1, 3)
+    x_trans = torch.cat([x[:, :, :2] + cam[:, :, 1:], x[:, :, 2:]], dim=2)
+    return cam[:, :, 0:1] * x_trans

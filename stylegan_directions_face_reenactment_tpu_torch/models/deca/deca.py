@@ -1,9 +1,10 @@
-"""DECA, the encode side: ResNet-50 + MLP regressing the 236 coefficients.
+"""DECA: the ResNet-50 + MLP encoder regressing the 236 coefficients, and
+the FLAME decode of coefficients to projected landmarks and vertices.
 
 Parameter split: 236 = shape 100 + tex 50 + exp 50 + pose 6 + cam 3 +
 light 27. Public functions take NHWC images like the JAX package and return
-its coefficient dicts; inside they compute in NCHW. FLAME decoding is not
-on the serving path and is not ported yet.
+its coefficient dicts; inside they compute in NCHW. The detail branch waits
+for the renderer.
 """
 
 from __future__ import annotations
@@ -13,8 +14,9 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn as nn
 
-from ...geometry.rotations import batch_axis2euler, rad2deg
+from ...geometry.rotations import batch_axis2euler, batch_orth_proj, rad2deg
 from ..nn import linear, relu, resize_bilinear
+from .flame import FLAME, flame_forward
 from .resnet import ResNet50, resnet50_features
 
 PARAM_SPLIT = (("shape", 100), ("tex", 50), ("exp", 50), ("pose", 6),
@@ -35,12 +37,14 @@ class ResnetEncoder(nn.Module):
 
 
 class DECA(nn.Module):
-    """The coarse encoder ``E_flame``; the detail branch and FLAME come with
-    the slices that need them."""
+    """The coarse encoder ``E_flame`` and, when given, the :class:`FLAME`
+    model ``flame``, whose arrays stay out of the state dict (the DECA
+    checkpoint holds ``E_flame`` alone; FLAME comes from its own files)."""
 
-    def __init__(self):
+    def __init__(self, flame: Optional[FLAME] = None):
         super().__init__()
         self.E_flame = ResnetEncoder(N_PARAM)
+        self.flame = flame
 
 
 def resnet_encoder_forward(p: ResnetEncoder, images: torch.Tensor) -> torch.Tensor:
@@ -86,6 +90,35 @@ def extract_deca_params(deca: DECA, images224: torch.Tensor
     """Aligned (B, 224, 224, 3) RGB in [0, 1] → (pose (B, 6), shape (B, 100),
     exp (B, 50), angles in degrees (B, 3), cam (B, 3))."""
     return _params_nchw(deca, _nchw(images224))
+
+
+def _project(points: torch.Tensor, cam: torch.Tensor, half: float) -> torch.Tensor:
+    """Weak-perspective projection, y and z flipped, into the image frame."""
+    p = batch_orth_proj(points, cam)
+    p = torch.cat([p[:, :, :1], -p[:, :, 1:]], dim=2)
+    return p * half + half
+
+
+def deca_decode(deca: DECA, codedict: Dict[str, torch.Tensor], image_size: int = IMAGE_SIZE
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Coefficients {shape, exp, pose, cam} → (landmarks2d (B, 68, 2),
+    landmarks3d (B, 68, 3), trans_verts (B, V, 3)) in the ``image_size``
+    frame (``deca.py:229-239``)."""
+    if deca.flame is None:
+        raise ValueError("deca_decode needs a DECA built with its FLAME model")
+    verts, landmarks2d, landmarks3d = flame_forward(
+        deca.flame, codedict["shape"], codedict["exp"], codedict["pose"])
+    half = image_size / 2.0
+    cam = codedict["cam"]
+    return (_project(landmarks2d, cam, half)[:, :, :2], _project(landmarks3d, cam, half),
+            _project(verts, cam, half))
+
+
+def calculate_shape(deca: DECA, coefficients: Dict[str, torch.Tensor]
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(landmarks2d, landmarks3d, trans_verts) from a coefficient dict with
+    keys {shape, exp, pose, cam} (``estimate_DECA.py:55-57``)."""
+    return deca_decode(deca, coefficients)
 
 
 def calculate_shapemodel(deca: DECA, images: torch.Tensor,

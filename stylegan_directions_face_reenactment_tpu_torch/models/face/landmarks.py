@@ -82,6 +82,8 @@ def estimate_landmarks(s3fd: S3FD, fan: FAN, images_rgb255: torch.Tensor,
     subtracts the mean (the face_alignment detector that DECA wraps). FAN
     reads the [0, 1] crop in both. ``compute_dtype`` runs S3FD and FAN in
     that dtype; boxes, heatmap peaks and coordinates stay float32.
+    Detection is detached (the boxes are constants to autograd, as the
+    JAX package's ``stop_gradient``); FAN's crops are not.
     """
     if detector_input == "fa":
         det_in, sub_mean = images_rgb255.flip(-1), True
@@ -89,10 +91,12 @@ def estimate_landmarks(s3fd: S3FD, fan: FAN, images_rgb255: torch.Tensor,
         det_in, sub_mean = images_rgb255, False
     else:
         raise ValueError(f"unknown detector_input {detector_input!r}")
+    det_in = det_in.detach()
     if compute_dtype is not None:
         det_in = det_in.to(compute_dtype)
     boxes, valid = detect_faces(s3fd, det_in, subtract_mean=sub_mean)
     best, ok = select_reference_face(boxes.float(), valid, conf_thresh)
+    best = best.detach()
 
     center, scale = box_to_center_scale(best)
     crops = crop_faces(images_rgb255, center, scale, 256) / 255.0

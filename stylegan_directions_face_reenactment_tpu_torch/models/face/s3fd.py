@@ -114,17 +114,19 @@ def dense_anchors(h: int, w: int, stride: int,
                   device=None) -> torch.Tensor:
     """Every prior of one scale, (h·w, 4) [cx, cy, w, h]: centers at
     stride/2 + i·stride, side 4·stride (``sfd/detect.py:59-68``). Built once
-    per map shape and device."""
+    per map shape and device, outside inference mode, so that a later call
+    with grad on may use them."""
     dev = torch.device(device if device is not None else "cpu")
     key = (h, w, stride, str(dev))
     if key not in _anchor_cache:
-        ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.float64),
-                                torch.arange(w, dtype=torch.float64), indexing="ij")
-        cx = stride / 2.0 + xs * stride
-        cy = stride / 2.0 + ys * stride
-        size = torch.full_like(cx, 4.0 * stride)
-        _anchor_cache[key] = torch.stack([cx, cy, size, size], dim=-1).reshape(-1, 4) \
-            .to(torch.float32).to(dev)
+        with torch.inference_mode(False):
+            ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.float64),
+                                    torch.arange(w, dtype=torch.float64), indexing="ij")
+            cx = stride / 2.0 + xs * stride
+            cy = stride / 2.0 + ys * stride
+            size = torch.full_like(cx, 4.0 * stride)
+            _anchor_cache[key] = torch.stack([cx, cy, size, size], dim=-1).reshape(-1, 4) \
+                .to(torch.float32).to(dev)
     return _anchor_cache[key]
 
 

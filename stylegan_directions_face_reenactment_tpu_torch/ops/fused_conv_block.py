@@ -38,10 +38,13 @@ of the TPU and do not carry over. CPU tensors take the plain version.
   in ``fused_conv_block_cuda.launches`` (one a block; the kernel runs as a
   prologue and three stage launches, each split stage with its reduce
   pass).
-* The kernel is forward only and serves under no-grad: on a CUDA tensor
-  that needs a gradient :func:`fused_conv_block` raises. The JAX package's
-  custom VJP recomputes through the plain composition; that wrapper comes
-  with the training path.
+* Where ``x`` or a fold or weight needs a gradient, :func:`fused_conv_block`
+  runs the kernel inside an autograd Function whose backward
+  (:func:`fused_conv_block_bwd`) recomputes the plain version from the saved
+  inputs and differentiates it, as the JAX package's custom VJP
+  (``fused_conv_block_256``'s ``_bwd``: ``jax.vjp`` of ``_reference``, no
+  Pallas call); on the card that is autograd through cuDNN. It counts its
+  calls in ``fused_conv_block_bwd.launches``.
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from .kernel_build import check, load_library
 
@@ -258,7 +262,7 @@ class _Launch(NamedTuple):
 _launches: dict = {}
 
 
-def _launch_for(x: torch.Tensor, args: K3Args) -> _Launch:
+def _launch_for(x: torch.Tensor, args: K3Args, keep: bool) -> _Launch:
     key = (id(args), x.shape, x.dtype, x.device)
     hit = _launches.get(key)
     if hit is not None and hit.args is args:
@@ -268,21 +272,24 @@ def _launch_for(x: torch.Tensor, args: K3Args) -> _Launch:
     ptrs = []
     for k in range(3):
         ptrs += [args.inv[k].data_ptr(), args.off[k].data_ptr(), args.wk[k].data_ptr()]
-    if len(_launches) >= 1024:     # args of blocks whose weights changed
-        _launches.clear()
-    hit = _launches[key] = _Launch(args, getattr(load_library(), _ENTRY[x.dtype]),
-                                   tuple(ptrs), scratch_layout(b, h, w, x.dtype),
-                                   schedule(b, h, w, x.dtype).kchunk)
+    hit = _Launch(args, getattr(load_library(), _ENTRY[x.dtype]), tuple(ptrs),
+                  scratch_layout(b, h, w, x.dtype), schedule(b, h, w, x.dtype).kchunk)
+    if keep:
+        if len(_launches) >= 1024:     # args of blocks whose weights changed
+            _launches.clear()
+        _launches[key] = hit
     return hit
 
 
-def fused_conv_block_cuda(x: torch.Tensor, args: K3Args) -> torch.Tensor:
+def fused_conv_block_cuda(x: torch.Tensor, args: K3Args, keep: bool = True) -> torch.Tensor:
     """Launch K3 on a contiguous (B, 256, H, W) CUDA tensor (f32 or bf16).
     The checks of ``args`` run on the first call of a shape; a call then
-    allocates the output and the scratch and makes one C call."""
+    allocates the output and the scratch and makes one C call. ``keep``
+    False checks the args anew and keeps no entry for them: args built
+    for one autograd call."""
     if not x.is_contiguous():
         raise ValueError("fused_conv_block_cuda takes a contiguous NCHW tensor")
-    run = _launch_for(x, args)
+    run = _launch_for(x, args, keep)
     b, _, h, w = x.shape
     out = torch.empty_like(x)
     act_b, ws, total = run.layout
@@ -298,16 +305,58 @@ def fused_conv_block_cuda(x: torch.Tensor, args: K3Args) -> torch.Tensor:
 fused_conv_block_cuda.launches = 0
 
 
+def fused_conv_block_bwd(grad: torch.Tensor, x: torch.Tensor, args: K3Args,
+                         needs: Tuple[bool, ...]) -> Tuple:
+    """K3's backward: the gradients of ``x`` and of the three folds' scales,
+    the three folds' offsets and the three weights (in that order; None
+    where ``needs``, ten flags in the same order, says none is wanted),
+    from the plain version recomputed on detached copies of the inputs."""
+    leaves = [t.detach().requires_grad_(n)
+              for t, n in zip((x,) + args.inv + args.off + args.w, needs)]
+    with torch.enable_grad():
+        out = fused_conv_block_plain(
+            leaves[0], K3Args(tuple(leaves[1:4]), tuple(leaves[4:7]),
+                              tuple(leaves[7:10]), args.wk))
+        wanted = [t for t in leaves if t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wanted, grad))
+    fused_conv_block_bwd.launches += 1
+    return tuple(next(grads) if t.requires_grad else None for t in leaves)
+
+
+fused_conv_block_bwd.launches = 0
+
+
+class _FusedConvBlockCUDA(torch.autograd.Function):
+    """K3 forward; the backward is :func:`fused_conv_block_bwd`. Inputs: x,
+    the block's K3Args, then its three scales, offsets and weights again as
+    tensors, so that autograd sees them (the packed weights ``wk`` take no
+    gradient of their own: theirs reaches ``w``)."""
+
+    @staticmethod
+    def forward(ctx, x, args, *tensors):
+        ctx.save_for_backward(x, *tensors)
+        ctx.wk = args.wk
+        return fused_conv_block_cuda(x, args, keep=False)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        x, *t = ctx.saved_tensors
+        args = K3Args(tuple(t[0:3]), tuple(t[3:6]), tuple(t[6:9]), ctx.wk)
+        needs = (ctx.needs_input_grad[0],) + ctx.needs_input_grad[2:]
+        grads = fused_conv_block_bwd(grad.contiguous(), x, args, needs)
+        return (grads[0], None) + grads[1:]
+
+
 def fused_conv_block(x: torch.Tensor, args: K3Args) -> torch.Tensor:
-    """The block: the kernel for a CUDA tensor, the plain version for a CPU
-    tensor."""
+    """The block: the kernel for a CUDA tensor (inside an autograd Function
+    when a gradient is wanted), the plain version for a CPU tensor."""
     if x.is_cuda:
+        x = x.contiguous()
         if torch.is_grad_enabled() and (x.requires_grad or any(
                 t.requires_grad for t in args.inv + args.off + args.w)):
-            raise NotImplementedError(
-                "the fused conv block CUDA kernel is forward only; its backward "
-                "(a recompute through the plain version) comes with the training path")
-        return fused_conv_block_cuda(x.contiguous(), args)
+            return _FusedConvBlockCUDA.apply(x, args, *args.inv, *args.off, *args.w)
+        return fused_conv_block_cuda(x, args)
     if x.device.type != "cpu":
         raise ValueError(f"fused_conv_block runs on cuda or cpu, not {x.device}")
     return fused_conv_block_plain(x, args)

@@ -59,8 +59,9 @@ def landmark_align(images01: torch.Tensor, landmarks: torch.Tensor,
                    ok: Optional[torch.Tensor] = None):
     """DECA alignment from landmarks computed earlier (the preprocessing
     pass's, mapped into crop coordinates) instead of a second SFD + FAN
-    pass. Returns (aligned (B, 224, 224, 3), ok)."""
-    lms = landmarks.float()
+    pass. The landmarks are constants to autograd, as the JAX package's
+    ``stop_gradient``. Returns (aligned (B, 224, 224, 3), ok)."""
+    lms = landmarks.float().detach()
     if ok is None:
         ok = torch.ones(images01.shape[0], dtype=torch.bool, device=images01.device)
     return _warp_or_whole(images01, lms, ok), ok
@@ -78,6 +79,10 @@ def make_fan_align(fan: FAN, s3fd: Optional[S3FD] = None,
     Without it ("fan_frame"): FAN on the whole 256 frame with center
     (128, 128) and scale 256/200, always ok. ``compute_dtype`` runs S3FD
     and FAN in that dtype.
+
+    Gradients reach the images through the warp alone: the detector's and
+    FAN's inputs and the landmarks are detached, where the JAX package
+    stops them (detection runs under no-grad in the reference).
     """
 
     def align(images01: torch.Tensor):
@@ -86,11 +91,13 @@ def make_fan_align(fan: FAN, s3fd: Optional[S3FD] = None,
         if h != 256:
             im256 = resize_bilinear(images01.permute(0, 3, 1, 2), (256, 256)).permute(0, 2, 3, 1)
         if s3fd is not None:
-            lms, ok, _ = estimate_landmarks(s3fd, fan, im256 * 255.0,
+            lms, ok, _ = estimate_landmarks(s3fd, fan, im256.detach() * 255.0,
                                             compute_dtype=compute_dtype,
                                             detector_input="fa")
         else:
-            fan_in = im256 if compute_dtype is None else im256.to(compute_dtype)
+            fan_in = im256.detach()
+            if compute_dtype is not None:
+                fan_in = fan_in.to(compute_dtype)
             heat = fan_forward(fan, fan_in)[-1].float()
             dev = images01.device
             lms = landmarks_to_image_coords(
@@ -100,7 +107,7 @@ def make_fan_align(fan: FAN, s3fd: Optional[S3FD] = None,
             ok = torch.ones(b, dtype=torch.bool, device=dev)
         if h != 256:
             lms = lms * (h / 256.0)
-        aligned = _warp_or_whole(images01, lms, ok)
+        aligned = _warp_or_whole(images01, lms.detach(), ok)
         return (aligned, ok) if return_ok else aligned
 
     return align

@@ -37,6 +37,7 @@ import torch.nn as nn
 
 from ..losses.lpips import ALEX_LAYER_IDS, LPIPS
 from ..models.deca.deca import DECA
+from ..models.deca.flame import FLAME, synthetic_flame_params
 from ..models.direction_matrix import DirectionMatrix
 from ..models.e4e import Encoder4Editing
 from ..models.face.fan import FAN
@@ -46,6 +47,7 @@ from ..models.stylegan2 import (ConstantInput, EqualLinear, Generator,
 from ..utils.device import DeviceLike, resolve_device
 
 Params = Mapping[str, Any]
+FLAME_VERTS, FLAME_FACES = 5023, 9976   # the real FLAME's sizes
 
 
 def _np(a, perm=None) -> np.ndarray:
@@ -126,8 +128,15 @@ def _bn(a, prefix, p):
     a[f"{prefix}.running_var"] = _np(p["var"])
 
 
+def flame_from_jax(params: Params, device: DeviceLike = None) -> FLAME:
+    """The JAX FLAME pytree (``load_flame_params``' or
+    ``synthetic_flame_params``' layout, as numpy arrays) → :class:`FLAME`."""
+    return FLAME(params).to(resolve_device(device))
+
+
 def deca_from_jax(params: Params, device: DeviceLike = None) -> DECA:
-    """The JAX DECA bundle's ``e_flame`` encoder → :class:`DECA`."""
+    """The JAX DECA bundle's ``e_flame`` encoder, and its ``flame`` model
+    when the bundle has one → :class:`DECA`."""
     e = params["e_flame"]
     r = e["resnet"]
     hwio = (3, 2, 0, 1)
@@ -145,7 +154,7 @@ def deca_from_jax(params: Params, device: DeviceLike = None) -> DECA:
     for idx, fc in ((0, "fc1"), (2, "fc2")):
         a[f"E_flame.layers.{idx}.weight"] = _np(e[fc]["weight"])
         a[f"E_flame.layers.{idx}.bias"] = _np(e[fc]["bias"])
-    deca = DECA()
+    deca = DECA(FLAME(params["flame"]) if "flame" in params else None)
     _load(deca, a)
     return deca.to(resolve_device(device))
 
@@ -290,10 +299,13 @@ def init_direction_matrix(seed: int = 0, shift_dim: int = 512, input_dim: int = 
 
 def init_deca(seed: int = 0, device: DeviceLike = None) -> DECA:
     """ResNet convs N(0, sqrt(2 / (kh·kw·out))), batch norm at identity
-    statistics, MLP weights U(±1/sqrt(in)) with zero biases."""
+    statistics, MLP weights U(±1/sqrt(in)) with zero biases; synthetic
+    FLAME at the real model's 5023 vertices and 9976 faces, from a
+    generator of its own seeded with ``seed``."""
     dev = resolve_device(device)
     rng = torch.Generator().manual_seed(seed)
-    deca = DECA()
+    deca = DECA(FLAME(synthetic_flame_params(torch.Generator().manual_seed(seed),
+                                             n_verts=FLAME_VERTS, n_faces=FLAME_FACES)))
     with torch.no_grad():
         for m in deca.modules():
             if isinstance(m, nn.Conv2d):

@@ -2,7 +2,7 @@
 JAX package's ``main`` on the CPU: the same checkpoint files
 (``tests/torch_cli_files.py``), the same PNG inputs, the same flags, at
 ``--image_resolution 64``, ``--no-optimize_generator --no-save_video``
-(PTI and the video library have their own tests).
+(PTI and the video files have their own tests).
 
 Inputs: 128×160 frames, black with a textured patch, rescaled to the
 detection width 200 by cv2 in both packages. Two targets keep their FFHQ

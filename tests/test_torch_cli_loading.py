@@ -99,19 +99,23 @@ def test_direction_matrix_files(root, name):
 
 
 def test_deca_file(root):
-    """``E_flame`` only in the port; the JAX loader also reads the FLAME
-    pickle and landmark embedding."""
-    d = ml.load_deca(path=f(root, "deca_model.tar"), device="cpu")
-    jd = jml.load_deca(path=f(root, "deca_model.tar"), flame_path=f(root, "generic_model.pkl"),
+    """``E_flame`` from the DECA file and FLAME from its pickle and landmark
+    embedding, in both packages: the same coefficients, the same FLAME
+    arrays."""
+    flame_files = dict(flame_path=f(root, "generic_model.pkl"),
                        flame_lmk_path=f(root, "landmark_embedding.npy"))
+    d = ml.load_deca(path=f(root, "deca_model.tar"), device="cpu", **flame_files)
+    jd = jml.load_deca(path=f(root, "deca_model.tar"), **flame_files)
     x = (IMG256[:, 16:240, 16:240] + 1) / 2
-    assert "flame" in jd
     want = statics_jit(j_deca_encode, {"e_flame": jd["e_flame"]})(jnp.asarray(x))
     with torch.no_grad():
         got = deca_encode(d, torch.from_numpy(x))
     assert set(got) == set(want)
     for k in want:
         close(got[k].numpy(), want[k])
+    assert set(jd["flame"]) == {k for k, _ in d.flame.named_buffers()}
+    for k, v in jd["flame"].items():
+        np.testing.assert_array_equal(getattr(d.flame, k).numpy(), np.asarray(v), err_msg=k)
 
 
 def test_face_model_files(root, monkeypatch):

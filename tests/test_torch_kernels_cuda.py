@@ -224,17 +224,79 @@ def test_fused_conv_block_runs_are_bit_equal(card, shape, dtype):
 
 
 def test_fused_conv_block_refuses_grad(card):
-    """The kernel is forward only: a CUDA input or weight that needs a
-    gradient raises instead of giving an output cut off from the graph."""
+    """A CUDA input or weight that needs a gradient no longer raises: the
+    kernel runs forward (one launch) and its backward recomputes the plain
+    version (one K3-bwd call), giving autograd's gradients of the plain
+    version for x and for a weight alone; under no-grad no backward is
+    recorded."""
     args = _k3_args(card, torch.float32)
     x = torch.randn(2, 256, 8, 8, device=card)
-    with pytest.raises(NotImplementedError):
-        k3.fused_conv_block(x.clone().requires_grad_(), args)
+    g = torch.randn(2, 256, 8, 8, device=card)
     w0 = args.w[0].clone().requires_grad_()
-    with pytest.raises(NotImplementedError):
-        k3.fused_conv_block(x, args._replace(w=(w0,) + args.w[1:]))
+    for xin, wargs, leaf in ((x.clone().requires_grad_(), args, None),
+                             (x, args._replace(w=(w0,) + args.w[1:]), w0)):
+        fwd, bwd = k3.fused_conv_block_cuda.launches, k3.fused_conv_block_bwd.launches
+        out = k3.fused_conv_block(xin, wargs)
+        wrt = xin if leaf is None else leaf
+        (got,) = torch.autograd.grad(out, wrt, g)
+        assert k3.fused_conv_block_cuda.launches == fwd + 1
+        assert k3.fused_conv_block_bwd.launches == bwd + 1
+        (want,) = torch.autograd.grad(k3.fused_conv_block_plain(xin, wargs), wrt, g)
+        check(got, want, f32_scaled=True)
     with torch.no_grad():
-        k3.fused_conv_block(x.clone().requires_grad_(), args)
+        assert not k3.fused_conv_block(x.clone().requires_grad_(), args).requires_grad
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("mode", ["no_grad", "inference_mode"])
+def test_fused_conv_block_served_args_hit_the_launch_cache(card, monkeypatch, mode, dtype):
+    """A FAN ConvBlock whose weights are ``nn.Parameter``s (they need a
+    gradient), served under no-grad or inference mode: its args are checked
+    on the first call of a shape and kept, so the second call checks
+    nothing; a call with grad on (the autograd Function) checks its fresh
+    args each time and keeps none of them."""
+    from stylegan_directions_face_reenactment_tpu_torch.models.face.fan import (
+        ConvBlock, conv_block)
+    p = ConvBlock(256, 256).to(card)
+    assert all(t.requires_grad for t in p.parameters())
+    x = torch.randn(2, 256, 16, 16, generator=torch.Generator(device=card).manual_seed(8),
+                    device=card).to(dtype)
+    checks = []
+    real_check = k3._check
+    monkeypatch.setattr(k3, "_check", lambda *a: (checks.append(1), real_check(*a)))
+    guard = torch.no_grad() if mode == "no_grad" else torch.inference_mode()
+    with guard:
+        first = conv_block(p, x)
+        after_first = len(checks)
+        second = conv_block(p, x)
+    assert after_first == 1 and len(checks) == 1
+    assert torch.equal(first, second)
+    kept = len(k3._launches)
+    for _ in range(2):
+        conv_block(p, x.clone().requires_grad_()).sum().backward()
+    assert len(checks) == 3 and len(k3._launches) == kept
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fused_conv_block_backward_matches_plain(card, dtype):
+    """Every gradient the autograd Function gives (x, the three folds'
+    scales and offsets, the three weights) against autograd through the
+    plain version."""
+    args = _k3_args(card, dtype)
+    g = torch.Generator(device=card).manual_seed(5)
+    x = torch.randn(2, 256, 16, 16, generator=g, device=card).to(dtype)
+    grad = torch.randn(2, 256, 16, 16, generator=g, device=card).to(dtype)
+
+    def leaves():
+        ts = [t.detach().clone().requires_grad_() for t in (x,) + args.inv + args.off + args.w]
+        return ts, k3.K3Args(tuple(ts[1:4]), tuple(ts[4:7]), tuple(ts[7:10]), args.wk)
+
+    ts, a = leaves()
+    got = torch.autograd.grad(k3.fused_conv_block(ts[0], a), ts, grad)
+    ts, a = leaves()
+    want = torch.autograd.grad(k3.fused_conv_block_plain(ts[0], a), ts, grad)
+    for gt, wt in zip(got, want):
+        check(gt, wt, f32_scaled=True)
 
 
 def test_fused_conv_block_refusals(card):

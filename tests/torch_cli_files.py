@@ -8,8 +8,8 @@ modules, for the CLI tests of both packages (``tests/test_torch_cli_*.py``):
 * ``A_matrix_voxceleb.pt`` (the training bundle, ``utils_train.py:592-603``)
   and ``A_matrix_voxceleb.npz`` (the JAX package's ``save_a_matrix``);
 * ``deca_model.tar``: ``{"E_flame": state dict}``, with the FLAME pickle and
-  landmark embedding that the JAX loader reads
-  (``tests/test_checkpoint_files.py``);
+  landmark embedding that both packages' loaders read (:func:`write_flame`,
+  the layout of ``tests/test_checkpoint_files.py``'s);
 * ``s3fd-619a316812.pth``: the raw state dict of a seeded S3FD whose
   stride-4 face score is gated on content (:func:`gate_s3fd_on_content`);
 * ``2DFAN4-11f355bf06.pth.tar``: ``{"state_dict": FAN}``, ``FAN_MODULES``
@@ -28,13 +28,13 @@ and the patch's place decides whether the box stays in the frame.
 """
 
 import os
-import pickle
 
 import numpy as np
 import torch
 
 from stylegan_directions_face_reenactment_tpu_torch.weights import (
-    init_deca, init_direction_matrix, init_fan, init_generator, init_lpips, init_s3fd)
+    init_deca, init_direction_matrix, init_fan, init_generator, init_lpips, init_s3fd,
+    write_flame_files)
 
 from torch_face_zoo import damped_e4e, randomize_bn
 
@@ -65,18 +65,35 @@ def patch_frame(h, w, top, left, side, seed) -> np.ndarray:
     return f
 
 
-def seeded_modules():
-    """The port modules the files are written from, on the CPU."""
+def _direction_matrix():
     a = init_direction_matrix(3, 512, 15, w_plus=True, num_layers=8, device="cpu")
     with torch.no_grad():
         a.linear.bias.copy_(0.01 * torch.randn(a.linear.bias.shape,
                                                generator=torch.Generator().manual_seed(4)))
+    return a
+
+
+def _gated_s3fd():
     sfd = init_s3fd(32, device="cpu")
     gate_s3fd_on_content(sfd)
-    return {"g": init_generator(1, SIZE, channel_multiplier=1, device="cpu"),
-            "e4e": damped_e4e(7, SIZE), "a": a, "deca": init_deca(2, device="cpu"),
-            "sfd": sfd, "fan": randomize_bn(init_fan(31, FAN_MODULES, device="cpu"), 32),
-            "lpips": init_lpips(8, device="cpu")}
+    return sfd
+
+
+MODULE_INITS = {
+    "g": lambda: init_generator(1, SIZE, channel_multiplier=1, device="cpu"),
+    "e4e": lambda: damped_e4e(7, SIZE),
+    "a": _direction_matrix,
+    "deca": lambda: init_deca(2, device="cpu"),
+    "sfd": _gated_s3fd,
+    "fan": lambda: randomize_bn(init_fan(31, FAN_MODULES, device="cpu"), 32),
+    "lpips": lambda: init_lpips(8, device="cpu"),
+}
+
+
+def seeded_modules(names=tuple(MODULE_INITS)):
+    """The port modules the files are written from, on the CPU: those
+    ``names`` (every one by default)."""
+    return {k: MODULE_INITS[k]() for k in names}
 
 
 def reference_generator_sd(g):
@@ -86,44 +103,43 @@ def reference_generator_sd(g):
 
 
 def write_pretrained(root, mods) -> None:
-    """Write every registry file into ``root``."""
+    """Write the registry files of the modules in ``mods`` into ``root``,
+    with the FLAME files beside DECA's."""
     def path(name):
         return os.path.join(root, name)
 
-    torch.save({"g_ema": reference_generator_sd(mods["g"]), "latent_avg": torch.randn(512)},
-               path("stylegan-voxceleb.pt"))
-    torch.save({"e": mods["e4e"].state_dict(), "latent_avg": torch.randn(512),
-                "opts": {"dataset_type": "voxceleb"}}, path("e4e-voxceleb.pt"))
-    a_sd = mods["a"].state_dict()
-    torch.save({"step": 32000, "A_matrix": a_sd, "learned_directions": 15,
-                "shift_scale": 6.0, "w_plus": True, "num_layers_shift": 8},
-               path("A_matrix_voxceleb.pt"))
-    np.savez(path("A_matrix_voxceleb.npz"), step=32000,
-             weight=a_sd["linear.weight"].numpy(), bias=a_sd["linear.bias"].numpy(),
-             learned_directions=15, shift_scale=6.0, w_plus=True, num_layers_shift=8)
-    torch.save({"E_flame": mods["deca"].E_flame.state_dict()}, path("deca_model.tar"))
-    torch.save(mods["sfd"].state_dict(), path("s3fd-619a316812.pth"))
-    torch.save({"state_dict": mods["fan"].state_dict()}, path("2DFAN4-11f355bf06.pth.tar"))
-    lp = mods["lpips"]
-    torch.save({"alex_features": lp.net.layers.state_dict(), "lin": lp.lin.state_dict()},
-               path("lpips_alex_v0.1.pth"))
+    if "g" in mods:
+        torch.save({"g_ema": reference_generator_sd(mods["g"]), "latent_avg": torch.randn(512)},
+                   path("stylegan-voxceleb.pt"))
+    if "e4e" in mods:
+        torch.save({"e": mods["e4e"].state_dict(), "latent_avg": torch.randn(512),
+                    "opts": {"dataset_type": "voxceleb"}}, path("e4e-voxceleb.pt"))
+    if "a" in mods:
+        a_sd = mods["a"].state_dict()
+        torch.save({"step": 32000, "A_matrix": a_sd, "learned_directions": 15,
+                    "shift_scale": 6.0, "w_plus": True, "num_layers_shift": 8},
+                   path("A_matrix_voxceleb.pt"))
+        np.savez(path("A_matrix_voxceleb.npz"), step=32000,
+                 weight=a_sd["linear.weight"].numpy(), bias=a_sd["linear.bias"].numpy(),
+                 learned_directions=15, shift_scale=6.0, w_plus=True, num_layers_shift=8)
+    if "deca" in mods:
+        torch.save({"E_flame": mods["deca"].E_flame.state_dict()}, path("deca_model.tar"))
+        write_flame(root)
+    if "sfd" in mods:
+        torch.save(mods["sfd"].state_dict(), path("s3fd-619a316812.pth"))
+    if "fan" in mods:
+        torch.save({"state_dict": mods["fan"].state_dict()}, path("2DFAN4-11f355bf06.pth.tar"))
+    if "lpips" in mods:
+        lp = mods["lpips"]
+        torch.save({"alex_features": lp.net.layers.state_dict(), "lin": lp.lin.state_dict()},
+                   path("lpips_alex_v0.1.pth"))
 
-    rng = np.random.RandomState(0)
-    flame = {"v_template": rng.randn(N_VERTS, 3) * 0.1,
-             "shapedirs": rng.randn(N_VERTS, 3, 400) * 0.01,
-             "posedirs": rng.randn(N_VERTS, 3, 36) * 0.01,
-             "J_regressor": np.abs(rng.randn(5, N_VERTS)),
-             "weights": np.abs(rng.randn(N_VERTS, 5)),
-             "f": rng.randint(0, N_VERTS, (N_FACES, 3)).astype(np.uint32)}
-    with open(path("generic_model.pkl"), "wb") as f:
-        pickle.dump(flame, f, protocol=2)
-    np.save(path("landmark_embedding.npy"), {
-        "static_lmk_faces_idx": rng.randint(0, N_FACES, (51,)),
-        "static_lmk_bary_coords": np.abs(rng.rand(51, 3)),
-        "dynamic_lmk_faces_idx": rng.randint(0, N_FACES, (79, 17)),
-        "dynamic_lmk_bary_coords": np.abs(rng.rand(79, 17, 3)),
-        "full_lmk_faces_idx": rng.randint(0, N_FACES, (1, 68)),
-        "full_lmk_bary_coords": np.abs(rng.rand(1, 68, 3))}, allow_pickle=True)
+
+def write_flame(root, n_verts=N_VERTS, n_faces=N_FACES) -> None:
+    """A FLAME ``generic_model.pkl`` and ``landmark_embedding.npy`` in the
+    real files' layouts, at a small mesh (``weights/flame_loader.py``)."""
+    write_flame_files(os.path.join(root, "generic_model.pkl"),
+                      os.path.join(root, "landmark_embedding.npy"), n_verts, n_faces)
 
 
 def point_registries(monkeypatch, root) -> None:
@@ -146,3 +162,21 @@ def point_registries(monkeypatch, root) -> None:
                                 os.path.join(root, os.path.basename(path)))
     monkeypatch.setattr(torch_convert, "convert_fan",
                         functools.partial(torch_convert.convert_fan, num_modules=FAN_MODULES))
+
+
+def hand_over_trunc(monkeypatch) -> None:
+    """Both packages draw the truncation's mean latent from their own random
+    z: keep the JAX ``compute_trunc``'s and hand it to the port's (the JAX
+    main runs first)."""
+    from stylegan_directions_face_reenactment_tpu.cli import model_loading as jml
+    from stylegan_directions_face_reenactment_tpu_torch.cli import model_loading as pml
+    kept = {}
+    j_compute_trunc = jml.compute_trunc
+
+    def keep_trunc(g, *args, **kwargs):
+        kept["trunc"] = np.asarray(j_compute_trunc(g, *args, **kwargs))
+        return kept["trunc"]
+
+    monkeypatch.setattr(jml, "compute_trunc", keep_trunc)
+    monkeypatch.setattr(pml, "compute_trunc",
+                        lambda g, *args, **kwargs: torch.tensor(kept["trunc"]))
