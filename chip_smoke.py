@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving paths once on one CUDA card.
+"""Drive the PyTorch port's serving and training paths once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -83,9 +83,19 @@ non-zero without printing the last line:
     the parameters' ``.grad`` checked, and a float64 witness of how far
     float32 gradients of the random FAN land (``grad_witness``);
 12. [flame]: ``deca_decode`` at B = 16 on FLAME at 5023 vertices, card
-    against CPU, and its time.
+    against CPU, and its time;
+13. [train]: training A at full width on the CLI phase's files plus a
+    seeded IR-SE-50 file (each block's last batch-norm scale × 0.3): (a)
+    ``cli/run_trainer.py::main`` synthetic at batch 12 for 4 steps with the
+    evaluation at step 0 and a checkpoint at step 2, (b) paired for one
+    epoch on a tree of generated frames and their codes (cached
+    coefficients), each with its launches and files; S3FD's ok frames; the
+    synthetic (float32 and bf16 synthesis) and paired steps timed, with
+    exact launches a step (K3-bwd 0, K3's calls from its launch cache),
+    peak memory and a profile; (c) one grads-only synthetic step at batch 2
+    with ``fan_frame`` on the card against the CPU (``train_card_vs_cpu``).
 
-Phases 10-12 run last, so that the readings of 1-8 keep the conditions
+Phases 10-13 run last, so that the readings of 1-8 keep the conditions
 they were first recorded in.
 
 The last two lines are the kernels' numbers and ``{"ok": true, ...}``.
@@ -162,6 +172,29 @@ GRAD_FAN_DAMP = 0.3                     # [grad]'s FAN conv weights scaled again
 FLAME_BATCH = 16
 INVERT_IDS, INVERT_VIDEOS, INVERT_FRAMES, INVERT_BATCH = 2, 2, 8, 4
 FLAME_RTOL, FLAME_ATOL = 1e-4, 1e-5     # FLAME decode card vs CPU, atol relative to max
+# [train]: batch of (a), (b) and the timed steps; (a)'s steps; (b)'s tree
+# (two pairs a video: 24 pairs, two steps an epoch); the timed steps
+TRAIN_BATCH, TRAIN_STEPS = 12, 4
+TRAIN_IDS, TRAIN_VIDEOS, TRAIN_FRAMES = 3, 4, 4
+TRAIN_WARM, TRAIN_TIMED, TRAIN_PROFILED = 2, 5, 3
+# (c): card vs CPU, one grads-only step: the loss terms' rtol; A's gradient
+# rtol and atol relative to its max. The card's own gradient moves 4.8e-4
+# to 1.6e-3 of its max under a 1e-6 change of A (the L1 losses' kinks and
+# cuDNN's backward, the witness), and read 0.6e-3 to 2.1e-3 of max from
+# the CPU's (read on an NVIDIA H100 80GB HBM3 at 700 W): no limit under the
+# witness can hold. The witness is held under TRAIN_WITNESS_MAX, 0.6 of the
+# atol (the disentanglement-50 step's read up to 2.1e-3); a control (the
+# card's step with the synthesis in bf16 against the CPU's float32 step,
+# read 7.8e-2) must read past the atol.
+TRAIN_CPU_BATCH = 2
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, TRAIN_GRAD_ATOL = 1e-4, 1e-3, 5e-3
+TRAIN_WITNESS_MAX = 0.6 * TRAIN_GRAD_ATOL
+# (c)'s DECA head (last Linear) scale on both sides, as the CPU tests'
+# (tests/torch_train_world.py): the random head regresses poses of several
+# radians, where the card's own gradient moved 2.0e-3 of its max under a
+# 1e-6 change of A (read on an H100), so no two float32 runs could agree
+TRAIN_DECA_HEAD_SCALE = 0.1
+IRSE_BN2_SCALE = 0.3                    # the seeded IR-SE-50's blocks, as e4e's
 
 
 class SmokeFailure(Exception):
@@ -299,17 +332,22 @@ def phase_build():
         print(f"[build] {line}")
 
 
-def k1_inputs(dtype, gen):
+def k1_inputs(dtype, gen, batch=BATCH):
+    """(call, input) for each K1 call of one synthesis of ``batch`` images
+    (BATCH on the serving path, TRAIN_BATCH in a train step)."""
     from stylegan_directions_face_reenactment_tpu_torch.ops.main_path import upfirdn2d_calls
     return [(c, torch.randn(c.shape, generator=gen, device="cuda").to(dtype))
-            for c in upfirdn2d_calls(SIZE, CM, BATCH)]
+            for c in upfirdn2d_calls(SIZE, CM, batch)]
 
 
-def k2_inputs(dtype, gen, with_mapping=False):
+def k2_inputs(dtype, gen, with_mapping=False, batch=BATCH):
+    """(shape, x, bias) for each K2 call of one synthesis of ``batch``
+    images; ``with_mapping`` adds the mapping network's (batch, 512) and the
+    mean latent's (4096, 512)."""
     from stylegan_directions_face_reenactment_tpu_torch.ops.main_path import fused_bias_act_calls
-    shapes = fused_bias_act_calls(SIZE, CM, BATCH)
+    shapes = fused_bias_act_calls(SIZE, CM, batch)
     if with_mapping:
-        shapes = shapes + [(BATCH, 512), (4096, 512)]
+        shapes = shapes + [(batch, 512), (4096, 512)]
     out = []
     for s in shapes:
         x = torch.randn(s, generator=gen, device="cuda").to(dtype)
@@ -363,7 +401,7 @@ def phase_parity():
     worst = {"upfirdn2d": 0.0, "fused_bias_act": 0.0, "fused_conv_block": 0.0}
     gen = torch.Generator(device="cuda").manual_seed(0)
     for dtype in (torch.float32, torch.bfloat16):
-        for call, x in k1_inputs(dtype, gen):
+        for call, x in (c for b in (BATCH, TRAIN_BATCH) for c in k1_inputs(dtype, gen, b)):
             got = upfirdn2d_cuda(x, k, call.up, call.pad)
             want = upfirdn2d(x, k, up=call.up, pad=call.pad)
             lib = library_k1(x, k, call)()
@@ -379,7 +417,8 @@ def phase_parity():
                      "not the same function")
             if dtype == torch.float32:
                 worst["upfirdn2d"] = max(worst["upfirdn2d"], err)
-        for shape, x, b in k2_inputs(dtype, gen, with_mapping=True):
+        for shape, x, b in (c for n in (BATCH, TRAIN_BATCH)
+                            for c in k2_inputs(dtype, gen, with_mapping=True, batch=n)):
             got = fused_bias_act_cuda(x, b)
             want = fused_leaky_relu_plain(x, b)
             torch.cuda.synchronize()
@@ -389,7 +428,7 @@ def phase_parity():
             need(err <= lim, f"fused_bias_act {shape} {dtype} disagrees")
             if dtype == torch.float32:
                 worst["fused_bias_act"] = max(worst["fused_bias_act"], err)
-        k3_cases = [c for b in (BATCH, 1) for c in k3_inputs(dtype, gen, b)]
+        k3_cases = [c for b in (BATCH, TRAIN_BATCH, 1) for c in k3_inputs(dtype, gen, b)]
         for shape in ((2, 256, 5, 7), (3, 256, 9, 33), (3, 256, 1, 1)):   # ragged tiles
             k3_cases.append((shape, 0, torch.randn(shape, generator=gen, device="cuda").to(dtype),
                              k3_cases[0][3]))
@@ -535,27 +574,37 @@ def print_sums(label, t, bw):
           f"{t['ops'] / 1e12:.4f} TFLOP)")
 
 
-def k1_bwd_inputs(dtype, gen):
-    """(call, gradient of its output) for each K1 backward of one PTI step."""
-    from stylegan_directions_face_reenactment_tpu_torch.ops.main_path import pti_backward_calls
+def k1_bwd_inputs(dtype, gen, train=False):
+    """(call, gradient of its output) for each K1 backward of one PTI step,
+    or with ``train`` of one train step (every forward call of the shifted
+    synthesis at TRAIN_BATCH: A shifts every layer's style)."""
+    from stylegan_directions_face_reenactment_tpu_torch.ops.main_path import (
+        pti_backward_calls, upfirdn2d_calls)
     from stylegan_directions_face_reenactment_tpu_torch.ops.upfirdn2d import (
         upfirdn2d_output_shape)
     out = []
-    for c in pti_backward_calls(SIZE, CM).upfirdn2d:
+    calls = (upfirdn2d_calls(SIZE, CM, TRAIN_BATCH) if train
+             else pti_backward_calls(SIZE, CM).upfirdn2d)
+    for c in calls:
         oh, ow = upfirdn2d_output_shape(c.shape[2], c.shape[3], (4, 4), up=c.up, pad=c.pad)
         out.append((c, torch.randn(c.shape[:2] + (oh, ow), generator=gen,
                                    device="cuda").to(dtype)))
     return out
 
 
-def k2_bwd_inputs(dtype, gen):
-    """(shape, g, y) for each K2-bwd of one PTI step; y is an activation
-    output, negative on about half its elements."""
+def k2_bwd_inputs(dtype, gen, train=False):
+    """(shape, g, y) for each K2-bwd of one PTI step, or with ``train`` of
+    one train step (every StyledConv of the shifted synthesis at
+    TRAIN_BATCH); y is an activation output, negative on about half its
+    elements."""
     from stylegan_directions_face_reenactment_tpu_torch.ops.fused_act import (
         fused_leaky_relu_plain)
-    from stylegan_directions_face_reenactment_tpu_torch.ops.main_path import pti_backward_calls
+    from stylegan_directions_face_reenactment_tpu_torch.ops.main_path import (
+        fused_bias_act_calls, pti_backward_calls)
     out = []
-    for s in pti_backward_calls(SIZE, CM).fused_bias_act:
+    shapes = (fused_bias_act_calls(SIZE, CM, TRAIN_BATCH) if train
+              else pti_backward_calls(SIZE, CM).fused_bias_act)
+    for s in shapes:
         g = torch.randn(s, generator=gen, device="cuda").to(dtype)
         y = fused_leaky_relu_plain(torch.randn(s, generator=gen, device="cuda").to(dtype))
         out.append((s, g, y))
@@ -574,7 +623,7 @@ def library_k1_bwd(g, k, call):
 
 def phase_parity_bwd():
     """The backward kernels against their plain versions at every shape of
-    one PTI step, float32 and bf16."""
+    one PTI step and of one train step, float32 and bf16."""
     from stylegan_directions_face_reenactment_tpu_torch.ops.fused_act import (
         fused_bias_act_bwd_cuda, fused_leaky_relu_bwd_plain)
     from stylegan_directions_face_reenactment_tpu_torch.ops.upfirdn2d import make_kernel
@@ -584,7 +633,7 @@ def phase_parity_bwd():
     worst = {"upfirdn2d_bwd": 0.0, "fused_bias_act_bwd": 0.0}
     gen = torch.Generator(device="cuda").manual_seed(2)
     for dtype in (torch.float32, torch.bfloat16):
-        for call, g in k1_bwd_inputs(dtype, gen):
+        for call, g in k1_bwd_inputs(dtype, gen) + k1_bwd_inputs(dtype, gen, train=True):
             got = upfirdn2d_bwd_cuda(g, k, call.up, call.pad, call.shape)
             want = upfirdn2d_backward(g, k, call.up, call.pad, call.shape)
             lib = library_k1_bwd(g, k, call)()
@@ -599,7 +648,7 @@ def phase_parity_bwd():
                 need(max_err(lib, want) <= lim, f"library call for the backward of "
                      f"{call.name} is not the same function")
                 worst["upfirdn2d_bwd"] = max(worst["upfirdn2d_bwd"], err)
-        for shape, g, y in k2_bwd_inputs(dtype, gen):
+        for shape, g, y in k2_bwd_inputs(dtype, gen) + k2_bwd_inputs(dtype, gen, train=True):
             got = fused_bias_act_bwd_cuda(g, y)
             want = fused_leaky_relu_bwd_plain(g, y)
             torch.cuda.synchronize()
@@ -2203,6 +2252,335 @@ def phase_invert(smi):
     return {"wall_s": wall, "ips": n / t}, got
 
 
+# ---------------------------------------------------------------------------
+# [train]: training the direction matrix A
+# ---------------------------------------------------------------------------
+
+def write_train_inputs():
+    """The ArcFace IR-SE-50 file (``model_ir_se50.pth``) beside the CLI
+    phase's files: the seeded backbone with each block's last batch-norm
+    scale × IRSE_BN2_SCALE (undamped, its random body grows the activations
+    about 18,000-fold, as e4e's does), and a tree of TRAIN_IDS x
+    TRAIN_VIDEOS videos of TRAIN_FRAMES 256² frames in the VoxCeleb layout:
+    each frame the generator's image of its W+ code (a video's codes share
+    one mapped w), with the code as its inversion. Returns the tree."""
+    from PIL import Image
+
+    from stylegan_directions_face_reenactment_tpu_torch.cli import model_loading
+    from stylegan_directions_face_reenactment_tpu_torch.configs import AUX_MODELS
+    from stylegan_directions_face_reenactment_tpu_torch.models import mapping
+    from stylegan_directions_face_reenactment_tpu_torch.pipeline import generate_image
+    from stylegan_directions_face_reenactment_tpu_torch.weights import init_id_backbone
+    idb = init_id_backbone(7, device="cpu")
+    with torch.no_grad():
+        for blk in idb.body:
+            blk.res_layer[4].weight.mul_(IRSE_BN2_SCALE)
+    torch.save(idb.state_dict(), AUX_MODELS["ir_se50"])
+
+    g = model_loading.load_generator()
+    root = os.path.join(CLI_DIR, "train_vox")
+    gen = torch.Generator(device="cuda").manual_seed(95)
+    with torch.no_grad():
+        for i in range(TRAIN_IDS):
+            for v in range(TRAIN_VIDEOS):
+                base = os.path.join(root, f"id{i:05d}", f"video{v}")
+                dirs = [os.path.join(base, "frames_cropped"),
+                        os.path.join(base, "inversion", "frames"),
+                        os.path.join(base, "inversion", "latent_codes")]
+                for d in dirs:
+                    os.makedirs(d)
+                w = mapping(g, torch.randn(1, 512, generator=gen, device="cuda"))
+                codes = w[:, None].repeat(TRAIN_FRAMES, g.n_latent, 1) + 0.3 * torch.randn(
+                    TRAIN_FRAMES, g.n_latent, 512, generator=gen, device="cuda")
+                imgs = generate_image(g, codes, input_is_latent=True)
+                u8 = ((imgs.clamp(-1, 1) + 1) * 127.5).round().to(torch.uint8).cpu().numpy()
+                for f in range(TRAIN_FRAMES):
+                    for d in dirs[:2]:
+                        Image.fromarray(u8[f]).save(os.path.join(d, f"{f:06d}.png"))
+                    np.save(os.path.join(dirs[2], f"{f:06d}.npy"), codes[f].cpu().numpy())
+    return root
+
+
+def train_models(device):
+    """The CLI files' nets on ``device`` as the trainer loads them."""
+    from stylegan_directions_face_reenactment_tpu_torch.cli import model_loading as ml
+    from stylegan_directions_face_reenactment_tpu_torch.train import FrozenModels
+    g = ml.load_generator(device=device)
+    sfd, fan = ml.load_face_models(device=device)
+    return FrozenModels(g, ml.load_deca(device=device), ml.load_id_backbone(device=device),
+                        ml.load_lpips(device=device), ml.compute_trunc(g), fan, sfd)
+
+
+def train_step_launches(method):
+    """Launches of one train step at full width: each synthesis K1 12 and
+    K2 13 (a z source adds its mapping, K2 a layer); the backward of the
+    shifted synthesis K1-bwd on every blur (down 1) and skip upsample (down
+    2) and K2-bwd on every StyledConv; K3 56 a shape pass (synthetic: the
+    source, the target and the shifted image; paired with cached
+    coefficients: the shifted image); no K3-bwd."""
+    from stylegan_directions_face_reenactment_tpu_torch.ops.main_path import (
+        fused_bias_act_calls, upfirdn2d_calls)
+    k1, k2 = upfirdn2d_calls(SIZE, CM, 1), len(fused_bias_act_calls(SIZE, CM, 1))
+    synths, mappings = (3, 3) if method == "synthetic" else (1, 0)
+    return {"K1": synths * len(k1), "K1-bwd": len(k1),
+            "K1-bwd down 2": sum(c.up == 2 for c in k1),
+            "K2": synths * k2 + mappings * MODELS["voxceleb"]["n_mlp"], "K2-bwd": k2,
+            "K3": K3_PER_PASS * synths, "K3-bwd": 0}
+
+
+def run_trainer_main(tag, flags, smi):
+    """``run_trainer.main`` with a save every 2 steps, a log line every step
+    and a validation set of TRAIN_BATCH samples (the CLI takes its cadence
+    from ``TrainingArguments``' defaults); its launches and files."""
+    import functools
+
+    from stylegan_directions_face_reenactment_tpu_torch.cli import run_trainer
+    from stylegan_directions_face_reenactment_tpu_torch.configs import arguments
+    exp = os.path.join(CLI_DIR, f"train_{tag}")
+    small = functools.partial(arguments.TrainingArguments, steps_per_log=1, steps_per_save=2,
+                              validation_samples=TRAIN_BATCH)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(arguments, "TrainingArguments", small):
+        trainer, a = run_trainer.main(flags + ["--batch_size", str(TRAIN_BATCH),
+                                               "--test_batch_size", str(TRAIN_BATCH),
+                                               "--experiment_path", exp])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = read_all_counts()
+    out = trainer.args.experiment_path
+    logs = [json.loads(x) for x in open(os.path.join(out, "logs", "train_log.jsonl"))]
+    evals = json.load(open(os.path.join(out, "logs", "eval_metrics.json")))
+    saved = sorted(os.listdir(os.path.join(out, "models")))
+    print(f"[train] ({tag}) run_trainer.main {' '.join(flags)} --batch_size {TRAIN_BATCH}: "
+          f"wall {wall:.3f} s (host clock, synchronized, loading and the step-0 evaluation "
+          f"included) on {smi}; {len(logs)} steps, losses "
+          + ", ".join(f"{r['loss']:.3f}" for r in logs)
+          + f"; step-0 evaluation CSIM {evals[0]['csim']:.4f}, pose {evals[0]['pose_error']:.3f}"
+          f"°, exp {evals[0]['expression_error']:.4f}; saved {saved}; launches "
+          + ", ".join(f"{k} {v}" for k, v in got.items()))
+    need(all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in logs)
+         and evals[0]["step"] == 0 and bool(torch.isfinite(a.linear.weight).all())
+         and os.path.exists(os.path.join(out, "images", "0000_reenactment.png")),
+         f"[train] ({tag}): a loss, the evaluation or A is not finite, or a file is missing")
+    need(got["K3-bwd"] == 0 and all(got[k] > 0 for k in got if k != "K3-bwd"),
+         f"[train] ({tag}) launches {got}: every kernel but K3-bwd must launch")
+    return trainer, logs, saved, got, wall
+
+
+def time_train_step(tag, step, smi, method):
+    """A step's median ms (CUDA-synchronized host clock) after a warm-up,
+    its exact launches, K3's argument checks (none once its launch cache
+    holds the step's shapes), the peak memory, and a profile of
+    TRAIN_PROFILED steps (device busy share, time by kernel class)."""
+    from stylegan_directions_face_reenactment_tpu_torch.ops import fused_conv_block as k3
+    for _ in range(TRAIN_WARM):
+        step()
+    torch.cuda.synchronize()
+    checks = []
+    real_check = k3._check
+    times, counts = [], []
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(k3, "_check", lambda *a: (checks.append(1), real_check(*a))[1]):
+        for _ in range(TRAIN_TIMED):
+            reset_counts()
+            t0 = time.perf_counter()
+            loss = step()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            counts.append(read_all_counts())
+    peak = torch.cuda.max_memory_allocated()
+    want = train_step_launches(method)
+    ms = statistics.median(times)
+    print(f"[train] {tag} step at batch {TRAIN_BATCH}: {ms:.3f} ms (median of {TRAIN_TIMED} "
+          f"after {TRAIN_WARM} warm-up, {min(times):.3f}-{max(times):.3f}; host clock, "
+          f"synchronized), peak {peak} bytes ({peak / 2**30:.3f} GiB), loss "
+          f"{float(loss['loss']):.4f}, on {smi}; launches a step "
+          + ", ".join(f"{k} {v} (expected {want[k]})" for k, v in counts[-1].items())
+          + f"; K3 argument checks in the timed steps {len(checks)} (expected 0: launch cache)")
+    need(all(c == want for c in counts) and not checks,
+         f"[train] {tag}: launches {counts[-1]}, expected {want}; K3 checks {len(checks)}")
+    profile_request(f"[train] {tag}", f"{TRAIN_PROFILED} steps at batch {TRAIN_BATCH}",
+                    lambda: [step() for _ in range(TRAIN_PROFILED)])
+    return {"ms": ms, "ms_min": min(times), "ms_max": max(times), "peak_bytes": peak,
+            "launches": counts[-1]}
+
+
+def train_card_vs_cpu(spec, launches):
+    """(c): one grads-only synthetic step at TRAIN_CPU_BATCH with the
+    ``fan_frame`` alignment on the card and on the CPU, same weights (DECA's
+    head × TRAIN_DECA_HEAD_SCALE on both) and draws, with the ID term out.
+    Held: the loss terms and A's gradient of the full-reenactment step and
+    of the default disentanglement-50 step (its second half's targets equal
+    the source's coefficients but one, so the L1 shape losses sit at
+    thousands of kinks around A's random init); for each, a witness that the
+    card's gradient does not jump under a 1e-6 change of A; the loss terms
+    with the ID term in; and a control, the card's step with its synthesis
+    in bf16, whose gradient must fail the limit against the CPU's float32
+    step. Printed: the ID term's gradient gap."""
+    from stylegan_directions_face_reenactment_tpu_torch.configs import TrainingArguments
+    from stylegan_directions_face_reenactment_tpu_torch.pipeline import generate_image
+    from stylegan_directions_face_reenactment_tpu_torch.train import (
+        make_align_fn, make_synthetic_step, sample_draws)
+    from stylegan_directions_face_reenactment_tpu_torch.weights import init_direction_matrix
+    models = {"cpu": train_models("cpu"), "cuda": train_models("cuda")}
+    for m in models.values():
+        with torch.no_grad():
+            m.deca.E_flame.layers[2].weight.mul_(TRAIN_DECA_HEAD_SCALE)
+    runs = {"held": dict(disentanglement_50=False, lambda_identity=0.0),
+            "disentanglement-50": dict(disentanglement_50=True, lambda_identity=0.0),
+            "with ID": dict(disentanglement_50=False, lambda_identity=10.0),
+            "bf16 control": dict(disentanglement_50=False, lambda_identity=0.0,
+                                 train_compute_dtype="bfloat16")}
+    out, kinks = {}, {}
+    for tag, kw in runs.items():
+        targs = TrainingArguments(batch_size=TRAIN_CPU_BATCH, deca_alignment="fan_frame", **kw)
+        draws = sample_draws(torch.Generator().manual_seed(7), targs, spec, "cpu",
+                             source=True, target=True)
+        for dev, m in models.items():
+            if tag == "bf16 control" and dev == "cpu":
+                continue                        # held against the "held" run's CPU step
+            d = type(draws)(*(None if x is None else x.to(dev) for x in draws))
+            a = init_direction_matrix(9, device=dev)
+            step_fn = make_synthetic_step(m, spec, targs, grads_only=True)
+            reset_counts()
+            terms, gr = step_fn(a, None, draws=d)
+            out[(tag, dev)] = ({k: float(v) for k, v in terms.items()},
+                               {k: v.cpu() for k, v in gr.items()})
+            if dev == "cuda":
+                launches.update(read_all_counts())
+                if tag in ("held", "disentanglement-50"):
+                    with torch.no_grad():
+                        a.linear.weight.mul_(1 + 1e-6)
+                    moved = step_fn(a, None, draws=d)[1]["weight"].cpu()
+                    kinks[tag] = max_err(moved, gr["weight"].cpu()) / float(
+                        gr["weight"].abs().max())
+    card = models["cuda"]
+    with torch.no_grad():
+        src = generate_image(card.generator, draws.z_src.cuda(), truncation=0.7,
+                             truncation_latent=card.truncation_latent)
+        ok = int(make_align_fn(card, targs)((src + 1) / 2.00001)[1].sum())
+
+    def gaps(tag, cpu_tag=None):
+        (t_cpu, g_cpu), (t_card, g_card) = out[(cpu_tag or tag, "cpu")], out[(tag, "cuda")]
+        terms = {k: abs(t_card[k] - v) / max(abs(v), 1e-12) for k, v in t_cpu.items()}
+        grads = {k: max_err(g_card[k], v) / float(v.abs().max()) for k, v in g_cpu.items()}
+        ok_t = set(t_cpu) == set(t_card) and all(v <= TRAIN_LOSS_RTOL for v in terms.values())
+        ok_g = all(allclose_scaled(g_card[k], v, TRAIN_GRAD_RTOL, TRAIN_GRAD_ATOL)
+                   for k, v in g_cpu.items())
+        return terms, grads, ok_t, ok_g
+
+    def show(d):
+        return ", ".join(f"{k} {v:.3g}" for k, v in d.items())
+
+    held = {tag: gaps(tag) for tag in ("held", "disentanglement-50")}
+    id_terms, _, ok_id, _ = gaps("with ID")
+    bf_terms, bf_grads, _, bf_ok_g = gaps("bf16 control", "held")
+    id_card = out[("with ID", "cuda")][1]["weight"] - out[("held", "cuda")][1]["weight"]
+    id_cpu = out[("with ID", "cpu")][1]["weight"] - out[("held", "cpu")][1]["weight"]
+    print(f"[train] (c) one grads-only synthetic step at batch {TRAIN_CPU_BATCH}, fan_frame (ok "
+          f"frames {ok} of {TRAIN_CPU_BATCH}), DECA's head × {TRAIN_DECA_HEAD_SCALE}, same "
+          f"weights and draws, lambda_identity 0; limits: loss terms rtol {TRAIN_LOSS_RTOL}, "
+          f"A's gradient rtol {TRAIN_GRAD_RTOL} and atol {TRAIN_GRAD_ATOL}·max, witness "
+          f"{TRAIN_WITNESS_MAX} of max")
+    for tag, (terms, grads, ok_t, ok_g) in held.items():
+        print(f"[train] (c) {tag}: loss terms |card - CPU| relative {show(terms)} ({ok_t}); "
+              f"A's gradient max |card - CPU| of max {show(grads)} ({ok_g}); the card's "
+              f"gradient at A·(1 + 1e-6) moves {kinks[tag]:.3g} of max (witness)")
+    print(f"[train] (c) with the ID term in (lambda_identity 10), loss terms {show(id_terms)} "
+          f"({ok_id}); printed, not held: the ID term's gradient (lambda_identity 10 less 0) "
+          f"max |card - CPU| {max_err(id_card, id_cpu) / float(id_cpu.abs().max()):.3g} of its "
+          f"max {float(id_cpu.abs().max()):.4g}")
+    print(f"[train] (c) control, the card's step with its synthesis in bf16 against the CPU's "
+          f"float32 step: loss terms {show(bf_terms)}; A's gradient max |card - CPU| of max "
+          f"{show(bf_grads)} (within the limits: {bf_ok_g}; must be False)")
+    need(all(kinks[tag] <= TRAIN_WITNESS_MAX for tag in kinks), "[train] (c): A's gradient "
+         "jumps under a 1e-6 change of A (a kink of the loss lies there): no card-CPU "
+         "comparison can hold")
+    need(all(ok_t and ok_g for _, _, ok_t, ok_g in held.values()) and ok_id,
+         "[train] (c): the card's step disagrees with the CPU's")
+    need(not bf_ok_g and max(bf_grads.values()) > TRAIN_GRAD_ATOL,
+         "[train] (c): the bf16 control passes the card-CPU limit: the limit cannot tell a "
+         "lower-precision step")
+
+
+def phase_train(smi):
+    """[train]: training A at full width on the CLI phase's files (plus the
+    IR-SE-50 file): (a) ``run_trainer.main`` synthetic, (b) paired on a tree
+    the phase writes, (c) one grads-only synthetic step at batch
+    TRAIN_CPU_BATCH on the card against the CPU; each method's step timed."""
+    from stylegan_directions_face_reenactment_tpu_torch.configs import TrainingArguments
+    from stylegan_directions_face_reenactment_tpu_torch.data import CustomDatasetPaired, Loader
+    from stylegan_directions_face_reenactment_tpu_torch.geometry import initialize_directions
+    from stylegan_directions_face_reenactment_tpu_torch.pipeline import generate_image
+    from stylegan_directions_face_reenactment_tpu_torch.train import (
+        make_align_fn, make_optimizer, make_paired_step, make_shape_program,
+        make_synthetic_step)
+    from stylegan_directions_face_reenactment_tpu_torch.weights import init_direction_matrix
+
+    t0 = time.perf_counter()
+    tree = write_train_inputs()
+    print(f"[train] IR-SE-50 file and a tree of {TRAIN_IDS * TRAIN_VIDEOS} videos x "
+          f"{TRAIN_FRAMES} generated 256² frames with their codes written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    launches = Counter()
+    _, logs_a, saved_a, got, wall_a = run_trainer_main(
+        "a", ["--training_method", "synthetic", "--n_steps", str(TRAIN_STEPS)], smi)
+    need(len(logs_a) == TRAIN_STEPS and saved_a == [f"A_matrix_{s:06d}.npz" for s in
+                                                    range(2, TRAIN_STEPS, 2)],
+         f"[train] (a): {len(logs_a)} steps logged, saved {saved_a}")
+    launches.update(got)
+    pairs = TRAIN_IDS * TRAIN_VIDEOS * 2
+    _, logs_b, _, got, wall_b = run_trainer_main(
+        "b", ["--training_method", "paired", "--n_steps", "1", "--train_dataset_path", tree,
+              "--test_dataset_path", tree], smi)
+    need(len(logs_b) == pairs // TRAIN_BATCH, f"[train] (b): {len(logs_b)} steps logged")
+    launches.update(got)
+
+    models = train_models("cuda")
+    spec = initialize_directions()
+    args = TrainingArguments(batch_size=TRAIN_BATCH)
+    align = make_align_fn(models, args)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    with torch.no_grad():
+        synth = generate_image(models.generator, torch.randn(
+            TRAIN_BATCH, 512, generator=gen, device="cuda"), truncation=0.7,
+            truncation_latent=models.truncation_latent)
+        batch = next(iter(Loader(CustomDatasetPaired(tree, seed=0), TRAIN_BATCH, seed=0)))
+        frames = torch.from_numpy(batch["target_img"]).cuda()
+        ok_a = int(align((synth + 1) / 2.00001)[1].sum())
+        ok_b = int(align((frames + 1) / 2.00001)[1].sum())
+    print(f"[train] S3FD (gated on content) finds a face in {ok_a} of {TRAIN_BATCH} synthetic "
+          f"frames and {ok_b} of {TRAIN_BATCH} tree frames (the rest take the whole-frame "
+          "warp and the -180° sentinel: constant shape losses)")
+
+    results = {}
+    for tag, dtype in (("synthetic", "float32"), ("synthetic bf16", "bfloat16")):
+        a = init_direction_matrix(1, device="cuda")
+        targs = TrainingArguments(batch_size=TRAIN_BATCH, train_compute_dtype=dtype)
+        step_fn = make_synthetic_step(models, spec, targs, make_optimizer(a, targs))
+        g = torch.Generator(device="cuda").manual_seed(11)
+        results[tag] = time_train_step(tag, lambda: step_fn(a, g), smi, "synthetic")
+        launches.update(results[tag]["launches"])
+    a = init_direction_matrix(1, device="cuda")
+    targs = TrainingArguments(batch_size=TRAIN_BATCH, training_method="paired")
+    shape = make_shape_program(models, targs)
+    extra = [torch.from_numpy(batch[k]).cuda() for k in
+             ("source_latent_code", "target_latent_code", "target_img")]
+    extra += [*shape(torch.from_numpy(batch["source_img"]).cuda()), *shape(frames)]
+    step_fn = make_paired_step(models, spec, targs, make_optimizer(a, targs), cached_shape=True)
+    results["paired"] = time_train_step("paired (cached coefficients)",
+                                        lambda: step_fn(a, None, *extra), smi, "paired")
+    launches.update(results["paired"]["launches"])
+    del models, step_fn, extra
+    torch.cuda.empty_cache()
+
+    train_card_vs_cpu(spec, launches)
+    results["walls"] = (wall_a, wall_b)
+    return results, launches
+
+
 def main():
     name, smi = phase_device()
     torch.backends.cudnn.allow_tf32 = False
@@ -2221,13 +2599,14 @@ def main():
         cli, cli_launches = phase_cli(smi)
         edit, edit_launches = phase_edit(smi)
         invert, invert_launches = phase_invert(smi)
+        # after the CLI phases, so that their readings keep their first conditions
+        worst["fused_conv_block_bwd"], timing[("fused_conv_block_bwd", "float32")] = (
+            phase_k3_bwd(name))
+        grad_launches = phase_grad()
+        flame_ms = phase_flame()
+        train, train_launches = phase_train(smi)   # on the CLI phase's files
     finally:
         shutil.rmtree(CLI_DIR, ignore_errors=True)
-    # after the phases PR 5 recorded, so that their readings keep its conditions
-    worst["fused_conv_block_bwd"], timing[("fused_conv_block_bwd", "float32")] = (
-        phase_k3_bwd(name))
-    grad_launches = phase_grad()
-    flame_ms = phase_flame()
     for label, res in (("slice 1, resize path", results),
                        ("slice 2, default path, 562x1000 raw frames", results2)):
         for tag, r in res.items():
@@ -2249,13 +2628,19 @@ def main():
           + ", ".join(f"({k}) {edit[k]['wall_s']:.3f} s" for k in "abc")
           + f"; inversion {invert['ips']:.2f} images/s, CLI wall {invert['wall_s']:.3f} s "
           f"on {smi}")
-    apps = (cli_launches, edit_launches, invert_launches)
+    for tag in ("synthetic", "synthetic bf16", "paired"):
+        r = train[tag]
+        print(f"[result] train step, {tag}, batch {TRAIN_BATCH}: {r['ms']:.3f} ms "
+              f"({r['ms_min']:.3f}-{r['ms_max']:.3f}), peak {r['peak_bytes']} bytes on {smi}")
+    print(f"[result] run_trainer walls: (a) synthetic {train['walls'][0]:.3f} s, (b) paired "
+          f"{train['walls'][1]:.3f} s on {smi}")
+    apps = (cli_launches, edit_launches, invert_launches, train_launches)
     launches = [launches[0] + launches2[0] + fwd3[0] + sum(c["K1"] for c in apps),
                 launches[1] + launches2[1] + fwd3[1] + sum(c["K2"] for c in apps),
                 launches2[2] + fwd3[2] + grad_launches["K3"] + sum(c["K3"] for c in apps),
                 bwd3[0] + sum(c["K1-bwd"] for c in apps),
                 bwd3[2] + sum(c["K2-bwd"] for c in apps),
-                grad_launches["K3-bwd"]]
+                grad_launches["K3-bwd"] + sum(c["K3-bwd"] for c in apps)]
     need(all(n > 0 for n in launches) and bwd3[1] > 0,
          f"a kernel of the main paths never launched: {launches}, K1 down 2 {bwd3[1]}")
 

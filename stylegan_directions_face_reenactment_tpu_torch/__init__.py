@@ -2,7 +2,8 @@
 
 It sits beside the JAX package ``stylegan_directions_face_reenactment_tpu``
 with the same subpackage layout (``ops/``, ``models/``, ``geometry/``,
-``pipeline/``, ``weights/``, ``configs/``) and imports nothing of it. Its
+``pipeline/``, ``train/``, ``weights/``, ``configs/``) and imports nothing
+of it. Its
 public functions take and return the JAX package's layouts (NHWC images,
 (T, n_latent, 512) latents); inside they compute in NCHW. Entry points run
 on the CUDA card unless the caller passes ``device="cpu"``.

@@ -21,9 +21,8 @@ DECA is the DECA file's ``E_flame`` with the FLAME model read from
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping, Optional, Sequence, Tuple
+from typing import Mapping, Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 import torch.nn as nn
 
@@ -34,10 +33,12 @@ from ..models.direction_matrix import DirectionMatrix
 from ..models.e4e import Encoder4Editing
 from ..models.face.fan import FAN
 from ..models.face.s3fd import S3FD
+from ..models.irse import Backbone
 from ..models.stylegan2 import Generator, mean_latent
 from ..utils.device import DeviceLike, resolve_device
 from ..weights import (init_deca, init_direction_matrix, init_e4e, init_fan,
-                       init_generator, init_lpips, init_s3fd, load_flame_params)
+                       init_generator, init_id_backbone, init_lpips, init_s3fd,
+                       load_a_matrix, load_flame_params)
 
 
 def _torch_load(path: str):
@@ -84,33 +85,15 @@ def load_e4e(dataset_type: str = "voxceleb", path: Optional[str] = None,
     return load_into(Encoder4Editing(res), ckpt.get("e", ckpt)).to(resolve_device(device))
 
 
-def _a_matrix_arrays(path: str) -> Tuple[Dict[str, torch.Tensor], bool, int]:
-    """(state dict, w_plus, num_layers) of an A bundle: the JAX package's
-    ``.npz`` (``train/checkpoints.py::save_a_matrix``) or the reference's
-    torch bundle (``utils_train.py:592-603``)."""
-    if path.endswith(".npz"):
-        z = np.load(path)
-        sd = {"linear.weight": torch.from_numpy(z["weight"])}
-        if z["bias"].size:
-            sd["linear.bias"] = torch.from_numpy(z["bias"])
-        return sd, bool(z["w_plus"]), int(z["num_layers_shift"])
-    bundle = _torch_load(path)
-    sd = bundle["A_matrix"] if "A_matrix" in bundle else bundle
-    return ({k: sd[k] for k in ("linear.weight", "linear.bias") if k in sd},
-            bool(bundle.get("w_plus", True)), int(bundle.get("num_layers_shift", 8)))
-
-
 def load_direction_matrix(dataset_type: str = "voxceleb", path: Optional[str] = None,
                           random_init: bool = False, seed: int = 2,
                           device: DeviceLike = None) -> DirectionMatrix:
+    """A from its bundle: the JAX package's (or the trainer's) ``.npz`` or the
+    reference's torch bundle (``weights/a_matrix.py::load_a_matrix``)."""
     if random_init:
         return init_direction_matrix(seed, 512, 15, w_plus=True, num_layers=8,
                                      device=device)
-    sd, w_plus, num_layers = _a_matrix_arrays(path or MODELS[dataset_type]["directions_path"])
-    out_dim, input_dim = sd["linear.weight"].shape
-    a = DirectionMatrix(out_dim // num_layers if w_plus else out_dim, input_dim,
-                        w_plus=w_plus, num_layers=num_layers, bias="linear.bias" in sd)
-    return load_into(a, {k: v.float() for k, v in sd.items()}).to(resolve_device(device))
+    return load_a_matrix(path or MODELS[dataset_type]["directions_path"], device)[1]
 
 
 def load_deca(path: Optional[str] = None, flame_path: Optional[str] = None,
@@ -136,6 +119,16 @@ def load_face_models(sfd_path: Optional[str] = None, fan_path: Optional[str] = N
     fan_sd = fan_ckpt.get("state_dict", fan_ckpt)
     n = sum(1 for k in fan_sd if re.fullmatch(r"conv_last\d+\.weight", k))
     return sfd.to(dev), load_into(FAN(n), fan_sd).to(dev)
+
+
+def load_id_backbone(path: Optional[str] = None, random_init: bool = False, seed: int = 5,
+                     device: DeviceLike = None) -> Backbone:
+    """The ArcFace IR-SE-50 of the identity loss (``model_ir_se50.pth``, a
+    plain state dict)."""
+    if random_init:
+        return init_id_backbone(seed, device=device)
+    m = load_into(Backbone(), _torch_load(path or AUX_MODELS["ir_se50"]))
+    return m.to(resolve_device(device))
 
 
 def load_lpips(path: Optional[str] = None, random_init: bool = False, seed: int = 6,

@@ -1,3 +1,7 @@
-from .datasets import DatasetInversion, Loader, load_image_gan_range
+from .datasets import (CustomDataset, CustomDatasetPaired, CustomDatasetPairedValidation,
+                       CustomDatasetTestsetReal, CustomDatasetTestsetSynthetic,
+                       DatasetInversion, Loader, load_image_gan_range)
 
-__all__ = ["DatasetInversion", "Loader", "load_image_gan_range"]
+__all__ = ["CustomDataset", "CustomDatasetPaired", "CustomDatasetPairedValidation",
+           "CustomDatasetTestsetReal", "CustomDatasetTestsetSynthetic",
+           "DatasetInversion", "Loader", "load_image_gan_range"]

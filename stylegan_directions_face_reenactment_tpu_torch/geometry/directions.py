@@ -17,6 +17,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from .rotations import batch_euler2axis, deg2rad
+
 _CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                            "configs")
 
@@ -68,6 +70,10 @@ class DirectionsSpec:
     def jaw_index(self) -> int:
         """Δp slot of the jaw direction (= count_pose - 1)."""
         return self.count_pose - 1
+
+    def exp_slot(self, i: int) -> int:
+        """Δp slot of learned expression i."""
+        return self.count_pose + i
 
 
 def initialize_directions(dataset_type: str = "voxceleb",
@@ -147,6 +153,101 @@ def make_shift_vector(spec: DirectionsSpec,
     """Full-reenactment Δp = start(target) − start(source); (B, k)."""
     return (start_positions(spec, param_target, angles_target)
             - start_positions(spec, param_source, angles_source))
+
+
+def make_shift_vector_50_from(spec: DirectionsSpec,
+                              param_source: Dict[str, torch.Tensor],
+                              param_target: Dict[str, torch.Tensor],
+                              angles_source: torch.Tensor,
+                              angles_target: torch.Tensor,
+                              target_indices: torch.Tensor,
+                              u: torch.Tensor) -> torch.Tensor:
+    """The disentanglement-50 batch from explicit draws
+    (``utils_train.py:177-288``): the first half the full Δp, each sample of
+    the second half one direction ``target_indices`` (B/2,) moved to the
+    uniform position ``u`` (B/2, in [0, 1)) of its range."""
+    half = angles_source.shape[0] // 2
+    full = make_shift_vector(spec, param_source, param_target, angles_source, angles_target)
+    start = start_positions(spec, param_source, angles_source)[half:]
+    idx = target_indices.long()
+    start_sel = start.gather(1, idx[:, None])[:, 0]
+    min_shift = -spec.shift_scale - start_sel
+    max_shift = spec.shift_scale - start_sel
+    shift_val = (min_shift - max_shift) * u.float() + max_shift
+    second = torch.zeros((half, spec.learned_directions), dtype=torch.float32,
+                         device=full.device)
+    second = second.scatter(1, idx[:, None], shift_val[:, None])
+    return torch.cat([full[:half], second], dim=0)
+
+
+def draw_disentanglement_50(spec: DirectionsSpec, half: int, gen: torch.Generator,
+                            device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(target_indices (half,) uniform over the directions, u (half,) in
+    [0, 1)) drawn from ``gen`` on its device and moved to ``device``."""
+    idx = torch.randint(0, spec.learned_directions, (half,), generator=gen,
+                        device=gen.device)
+    u = torch.rand((half,), generator=gen, device=gen.device)
+    return idx.to(device), u.to(device)
+
+
+def make_shift_vector_50(spec: DirectionsSpec,
+                         param_source: Dict[str, torch.Tensor],
+                         param_target: Dict[str, torch.Tensor],
+                         angles_source: torch.Tensor,
+                         angles_target: torch.Tensor,
+                         gen: torch.Generator) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The disentanglement-50 batch with its draws from ``gen``: (shift
+    vector (B, k), target_indices (B/2,)). The batch must be even."""
+    b = angles_source.shape[0]
+    if b % 2:
+        raise ValueError("batch size must be even for disentanglement_50")
+    idx, u = draw_disentanglement_50(spec, b // 2, gen, angles_source.device)
+    return (make_shift_vector_50_from(spec, param_source, param_target, angles_source,
+                                      angles_target, idx, u), idx)
+
+
+def get_params_gt_reenacted(spec: DirectionsSpec,
+                            param_source: Dict[str, torch.Tensor],
+                            param_target: Dict[str, torch.Tensor],
+                            shift_vector: torch.Tensor,
+                            target_indices: torch.Tensor,
+                            angles_source: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Ground-truth FLAME pose and expression of the reenacted face
+    (``utils_train.py:291-374``): the target's for the first half of the
+    batch; for the second, the source's with the one chosen attribute moved
+    by its shift, pose directions through euler → axis-angle with the
+    reference's component swap (x, y) → (y, −x) (``:310-314``)."""
+    half = angles_source.shape[0] // 2
+    idx = target_indices.long()
+    ang_s = angles_source[half:].float()
+    pose_s = param_source["pose"][half:]
+    exp_s = param_source["alpha_exp"][half:]
+    shift_sel = shift_vector[half:].gather(1, idx[:, None])[:, 0]
+
+    new_pose3 = pose_s[:, :3]
+    for axis, direction in enumerate((spec.yaw_direction, spec.pitch_direction,
+                                      spec.roll_direction)):
+        scale = spec.angle_scales[axis]
+        start = ang_s[:, axis] * (spec.shift_scale / scale)
+        ang = ang_s.clone()
+        ang[:, axis] = (start + shift_sel) * (scale / spec.shift_scale)
+        aa = batch_euler2axis(deg2rad(ang))
+        aa = torch.stack([aa[:, 1], -aa[:, 0], aa[:, 2]], dim=-1)
+        if direction != -1:
+            new_pose3 = torch.where((idx == direction)[:, None], aa, new_pose3)
+
+    # jaw: x' = x + shift / a, from ((a·x + b) + s − b) / a
+    new_jaw = torch.where(idx == spec.jaw_index, pose_s[:, 3] + shift_sel / spec.a_jaw,
+                          pose_s[:, 3])
+    exp_new = exp_s.clone()
+    for i in range(spec.num_expressions):
+        ci = spec.exp_components[i]
+        exp_new[:, ci] = torch.where(idx == spec.exp_slot(i),
+                                     exp_s[:, ci] + shift_sel / spec.exp_a[i], exp_new[:, ci])
+
+    pose_second = torch.cat([new_pose3, new_jaw[:, None], pose_s[:, 4:]], dim=1)
+    return {"pose": torch.cat([param_target["pose"][:half], pose_second], dim=0),
+            "exp": torch.cat([param_target["alpha_exp"][:half], exp_new], dim=0)}
 
 
 def get_direction_info(spec: DirectionsSpec, direction_index: int,

@@ -1,8 +1,12 @@
-"""Losses: LPIPS (AlexNet) and the PTI objective of source set-up."""
+"""Losses: LPIPS (AlexNet), the PTI objective of source set-up, the ArcFace
+identity loss and the FLAME shape losses of training."""
 
+from .id_loss import csim, extract_id_feats, id_loss
 from .lpips import LPIPS, alex_features, lpips
 from .pti import PTIHyperparams, pti_loss
-from .shape_losses import l2_loss
+from .shape_losses import (eye_loss, l2_loss, mouth_loss, pixel_wise_loss,
+                           shape_loss)
 
 __all__ = ["LPIPS", "alex_features", "lpips", "PTIHyperparams", "pti_loss",
-           "l2_loss"]
+           "csim", "extract_id_feats", "id_loss", "eye_loss", "l2_loss",
+           "mouth_loss", "pixel_wise_loss", "shape_loss"]

@@ -6,8 +6,9 @@ the parameters under the reference's names (``input_layer.N``,
 ``body.N.res_layer.N``, ``body.N.shortcut_layer.N``), so a reference
 checkpoint loads with ``load_state_dict``; the functions hold the forward
 math, frozen as in the reference (batch norm on its running statistics,
-folded at call time). The ArcFace head (``backbone_forward``, ``l2_norm``)
-of the identity loss comes with the training path.
+folded at call time). :class:`Backbone` is the ArcFace IR-SE-50 of the
+identity loss (``model_irse.py:9-48``): the same stem and body, then its
+output head.
 """
 
 from __future__ import annotations
@@ -17,8 +18,8 @@ from typing import List, Tuple
 import torch
 import torch.nn as nn
 
-from .nn import (adaptive_avg_pool2d, batch_norm, conv2d, prelu, relu,
-                 sigmoid)
+from .nn import (adaptive_avg_pool2d, batch_norm, conv2d, linear, prelu,
+                 relu, sigmoid)
 
 # [3, 4, 14, 3] IR bottleneck stages as (in_c, depth, stride) a block
 # (`helpers.py:30-37`)
@@ -105,3 +106,36 @@ def ir_body(body: nn.Sequential, x: torch.Tensor,
         if i in taps:
             tapped.append(x)
     return x, tapped
+
+
+class Backbone(nn.Module):
+    """ArcFace IR-SE-50 at 112 (``model_irse.py:9-48``): ``input_layer``,
+    ``body`` and ``output_layer`` = BN2d(512) → Dropout → Flatten →
+    Linear(512·7·7 → 512) → BN1d(512, affine=False), under the reference's
+    keys (``output_layer.{0,3,4}``)."""
+
+    def __init__(self, input_size: int = 112):
+        super().__init__()
+        spatial = input_size // 16
+        self.input_layer = input_layer_module()
+        self.body = ir_body_module()
+        self.output_layer = nn.Sequential(
+            nn.BatchNorm2d(512), nn.Dropout(), nn.Flatten(),
+            nn.Linear(512 * spatial * spatial, 512), nn.BatchNorm1d(512, affine=False))
+
+
+def l2_norm(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """x / ||x|| (``helpers.py:16-19``)."""
+    return x / torch.linalg.vector_norm(x, dim=dim, keepdim=True)
+
+
+def backbone_forward(m: Backbone, x: torch.Tensor) -> torch.Tensor:
+    """x (B, 112, 112, 3) in [-1, 1] → (B, 512) unit embedding. Dropout is
+    the identity (frozen); the flatten is in (C, H, W) order, so the
+    reference's Linear applies unchanged."""
+    out = input_layer(m.input_layer, x.permute(0, 3, 1, 2))
+    out, _ = ir_body(m.body, out)
+    head = m.output_layer
+    out = batch_norm(out, head[0]).flatten(1)
+    out = batch_norm(linear(out, head[3].weight, head[3].bias), head[4])
+    return l2_norm(out)

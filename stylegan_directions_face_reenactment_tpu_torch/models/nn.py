@@ -41,9 +41,14 @@ def linear(x: torch.Tensor, w: torch.Tensor,
 def fold_bn(bn: nn.BatchNorm2d, dtype: torch.dtype,
             eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
     """``bn``'s weight, bias and running statistics folded in float32 to one
-    scale and one shift per channel, each rounded to ``dtype``."""
-    inv = torch.rsqrt(bn.running_var.float() + eps) * bn.weight.float()
-    shift = bn.bias.float() - bn.running_mean.float() * inv
+    scale and one shift per channel, each rounded to ``dtype`` (a norm
+    without affine terms scales by 1 and shifts by 0)."""
+    inv = torch.rsqrt(bn.running_var.float() + eps)
+    if bn.weight is not None:
+        inv = inv * bn.weight.float()
+    shift = -bn.running_mean.float() * inv
+    if bn.bias is not None:
+        shift = shift + bn.bias.float()
     return inv.to(dtype), shift.to(dtype)
 
 

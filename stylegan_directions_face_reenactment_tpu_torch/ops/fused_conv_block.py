@@ -179,10 +179,12 @@ _cache: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
 def block_args(p, dtype: torch.dtype) -> K3Args:
-    """ConvBlock ``p``'s K3Args in ``dtype``. Under no-grad they are kept
-    beside ``p`` and rebuilt when a weight or statistic changes (its storage
-    or version); with grad on they are built anew, so gradients reach the
-    parameters."""
+    """ConvBlock ``p``'s K3Args in ``dtype``. They are kept beside ``p`` and
+    rebuilt when a weight or statistic changes (its storage or version),
+    unless a gradient is to reach the parameters (grad on and a parameter
+    that requires it): then they are built anew each call. A frozen FAN
+    (training's) keeps its args with grad on too, so its served calls hit
+    the launch cache."""
     from ..models.nn import fold_bn
     tensors = list(p.parameters()) + list(p.buffers())
 
@@ -191,7 +193,8 @@ def block_args(p, dtype: torch.dtype) -> K3Args:
         return make_k3_args([f[0] for f in folds], [f[1] for f in folds],
                             [p.conv1.weight, p.conv2.weight, p.conv3.weight], dtype)
 
-    if torch.is_grad_enabled() or any(t.is_inference() for t in tensors):
+    if (torch.is_grad_enabled() and any(t.requires_grad for t in tensors)) or any(
+            t.is_inference() for t in tensors):
         return build()
     key = (dtype, tensors[0].device,
            tuple((t.data_ptr(), t._version) for t in tensors))

@@ -21,6 +21,13 @@ def _np(x) -> np.ndarray:
     return np.asarray(x)
 
 
+def torch_range_1_to_255(x: torch.Tensor) -> torch.Tensor:
+    """[-1, 1] → [0, 255] with the reference's /(2 + 1e-5)
+    (``image_utils.py:87-94``): the full range maps to [0, 254.99873]. The
+    paired losses take their images through it."""
+    return (torch.clamp(x, -1.0, 1.0) + 1.0) / 2.00001 * 255.0
+
+
 def tensor_to_image(x) -> np.ndarray:
     """NHWC float in [-1, 1] (one image or a batch of one) → HWC uint8,
     truncated as the reference does."""

@@ -42,6 +42,7 @@ from ..models.direction_matrix import DirectionMatrix
 from ..models.e4e import Encoder4Editing
 from ..models.face.fan import FAN
 from ..models.face.s3fd import HEADS, NORMS, S3FD, TRUNK
+from ..models.irse import Backbone
 from ..models.stylegan2 import (ConstantInput, EqualLinear, Generator,
                                 ModulatedConv2d, NoiseBuffers)
 from ..utils.device import DeviceLike, resolve_device
@@ -211,10 +212,9 @@ def fan_from_jax(params: Params, device: DeviceLike = None) -> FAN:
     return fan.to(resolve_device(device))
 
 
-def e4e_from_jax(params: Params, device: DeviceLike = None) -> Encoder4Editing:
-    """The JAX e4e pytree (``convert_e4e_encoder``'s or
-    ``init_e4e_encoder``'s layout) → :class:`Encoder4Editing`."""
-    style_count = params["meta"]["style_count"]
+def _irse_trunk(params: Params) -> Dict[str, np.ndarray]:
+    """The IR-SE stem and body of a JAX pytree (``input``, ``body``) under
+    the reference's keys (``input_layer.N``, ``body.N.*``)."""
     hwio = (3, 2, 0, 1)
     a: Dict[str, np.ndarray] = {"input_layer.0.weight": _np(params["input"]["conv"], hwio),
                                 "input_layer.2.weight": _np(params["input"]["prelu"])}
@@ -231,6 +231,15 @@ def e4e_from_jax(params: Params, device: DeviceLike = None) -> Encoder4Editing:
         if "shortcut" in blk:
             a[f"{pre}.shortcut_layer.0.weight"] = _np(blk["shortcut"]["conv"], hwio)
             _bn(a, f"{pre}.shortcut_layer.1", blk["shortcut"]["bn"])
+    return a
+
+
+def e4e_from_jax(params: Params, device: DeviceLike = None) -> Encoder4Editing:
+    """The JAX e4e pytree (``convert_e4e_encoder``'s or
+    ``init_e4e_encoder``'s layout) → :class:`Encoder4Editing`."""
+    style_count = params["meta"]["style_count"]
+    hwio = (3, 2, 0, 1)
+    a = _irse_trunk(params)
     for i, st in enumerate(params["styles"]):
         for j, (w, b) in enumerate(zip(st["convs"], st["biases"])):
             a[f"styles.{i}.convs.{2 * j}.weight"] = _np(w, hwio)
@@ -242,6 +251,21 @@ def e4e_from_jax(params: Params, device: DeviceLike = None) -> Encoder4Editing:
     e = Encoder4Editing(2 ** ((style_count + 2) // 2))
     _load(e, a)
     return e.to(resolve_device(device))
+
+
+def id_backbone_from_jax(params: Params, device: DeviceLike = None) -> Backbone:
+    """The JAX ArcFace pytree (``convert_irse_backbone``'s or
+    ``init_backbone``'s layout) → :class:`Backbone`. The last norm has no
+    affine terms (the JAX pytree's scale 1 and offset 0 are not read)."""
+    a = _irse_trunk(params)
+    _bn(a, "output_layer.0", params["out_bn2d"])
+    a["output_layer.3.weight"] = _np(params["out_linear"]["weight"])
+    a["output_layer.3.bias"] = _np(params["out_linear"]["bias"])
+    a["output_layer.4.running_mean"] = _np(params["out_bn1d"]["mean"])
+    a["output_layer.4.running_var"] = _np(params["out_bn1d"]["var"])
+    m = Backbone(params["meta"]["input_size"])
+    _load(m, a)
+    return m.to(resolve_device(device))
 
 
 def lpips_from_jax(params: Params, device: DeviceLike = None) -> LPIPS:
@@ -372,6 +396,27 @@ def init_e4e(seed: int = 0, image_resolution: int = 256,
             elif isinstance(m, EqualLinear):
                 m.weight.copy_(torch.randn(m.weight.shape, generator=rng))
     return e.to(dev)
+
+
+def init_id_backbone(seed: int = 0, input_size: int = 112,
+                     device: DeviceLike = None) -> Backbone:
+    """The JAX package's ``init_backbone`` distributions: every conv
+    He-uniform U(±sqrt(6 / (in·kh·kw))), batch norm at identity statistics,
+    PReLU slopes 0.25, the head's Linear U(±1/sqrt(in)) with a zero bias."""
+    dev = resolve_device(device)
+    rng = torch.Generator().manual_seed(seed)
+    m = Backbone(input_size)
+    with torch.no_grad():
+        for c in m.modules():
+            if isinstance(c, nn.Conv2d):
+                _, cin, kh, kw = c.weight.shape
+                lim = math.sqrt(6.0 / (cin * kh * kw))
+                c.weight.copy_((torch.rand(c.weight.shape, generator=rng) * 2 - 1) * lim)
+            elif isinstance(c, nn.Linear):
+                lim = 1.0 / math.sqrt(c.in_features)
+                c.weight.copy_((torch.rand(c.weight.shape, generator=rng) * 2 - 1) * lim)
+                c.bias.zero_()
+    return m.to(dev)
 
 
 def init_lpips(seed: int = 0, device: DeviceLike = None) -> LPIPS:

@@ -181,6 +181,19 @@ def test_block_args_follow_weight_changes():
     assert b.wk[0].shape == (256, 3, 3, 128) and b.wk[0].is_contiguous()
 
 
+def test_block_args_kept_for_a_frozen_block_with_grad_on():
+    """With grad on, a block whose parameters require a gradient gets fresh
+    args each call (so the gradient reaches them); a frozen block (the
+    trainer's FAN) keeps its args, so its K3 calls hit the launch cache."""
+    p = ConvBlock(256, 256)
+    assert k3.block_args(p, torch.float32) is not k3.block_args(p, torch.float32)
+    p.requires_grad_(False)
+    a = k3.block_args(p, torch.float32)
+    assert k3.block_args(p, torch.float32) is a
+    with torch.no_grad():
+        assert k3.block_args(p, torch.float32) is a
+
+
 def test_state_dict_keeps_the_reference_key_layout(fans):
     """The port's FAN state dict goes through ``convert_fan`` and gives back
     the pytree it was made from; the last module has no bl/al."""

@@ -414,3 +414,38 @@ def test_pti_step_gradients_match_plain_path(card):
     for a, w in zip(got, want):
         if w.numel() > 1:
             torch.testing.assert_close(a, w, rtol=1e-3, atol=2e-3 * float(w.abs().max()))
+
+
+def test_train_step_serves_k3_from_its_launch_cache(card, monkeypatch):
+    """One grads-only synthetic train step (64² generator, a 4-module FAN on
+    the frame, batch 2) on the card: the frozen FAN's K3 calls check their
+    args in the first step only, later steps hit the launch cache, and no
+    K3-bwd runs (FAN's input and the landmarks are detached)."""
+    from stylegan_directions_face_reenactment_tpu_torch.configs import TrainingArguments
+    from stylegan_directions_face_reenactment_tpu_torch.geometry import initialize_directions
+    from stylegan_directions_face_reenactment_tpu_torch.models import mean_latent
+    from stylegan_directions_face_reenactment_tpu_torch.train import (
+        FrozenModels, make_synthetic_step)
+    from stylegan_directions_face_reenactment_tpu_torch.weights import (
+        init_deca, init_direction_matrix, init_fan, init_generator, init_id_backbone,
+        init_lpips)
+    g = init_generator(1, 64, 512, 8, 1, device=card)
+    models = FrozenModels(g, init_deca(2, device=card), init_id_backbone(3, device=card),
+                          init_lpips(4, device=card),
+                          mean_latent(g, torch.Generator().manual_seed(5), 64),
+                          init_fan(6, 4, device=card))
+    args = TrainingArguments(batch_size=2, image_resolution=64, deca_alignment="fan_frame")
+    step = make_synthetic_step(models, initialize_directions(), args, grads_only=True)
+    a = init_direction_matrix(7, device=card)
+    gen = torch.Generator(device=card).manual_seed(8)
+    checks = []
+    real_check = k3._check
+    monkeypatch.setattr(k3, "_check", lambda *x: (checks.append(1), real_check(*x))[1])
+    step(a, gen)
+    first = len(checks)
+    launches, bwd = k3.fused_conv_block_cuda.launches, k3.fused_conv_block_bwd.launches
+    terms, grads = step(a, gen)
+    assert first > 0 and len(checks) == first
+    assert k3.fused_conv_block_cuda.launches - launches == 3 * 56
+    assert k3.fused_conv_block_bwd.launches == bwd
+    assert torch.isfinite(grads["weight"]).all() and torch.isfinite(terms["loss"])
