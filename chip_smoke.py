@@ -95,13 +95,35 @@ non-zero without printing the last line:
     peak memory and a profile; (c) one grads-only synthetic step at batch 2
     with ``fan_frame`` on the card against the CPU (``train_card_vs_cpu``).
 
-Phases 10-13 run last, so that the readings of 1-8 keep the conditions
+14. [ddp] (data parallelism, ``parallel/mesh.py``): (a) the paired step
+    (cached coefficients, batch 12) over an NCCL world of the cards present
+    (at most 4; one on a one-card machine, where A's update must be
+    bit-equal to the plain step's); (b) two gloo ranks on card 0, each half
+    of a batch-12 paired and synthetic step, against the one-process steps
+    at [train] (c)'s limits with its witness first; (c)
+    ``run_trainer.main --n_devices`` over the cards when there are two or
+    more. Per rank: launches a step, step ms, the all-reduce's ms, peak
+    memory; the kernels held at the per-rank batch of 6;
+15. [mesh]: ``make_mesh`` past the cards raises; ``make_fused_reenact_fn
+    (mesh=...)`` over two slots (two cards, or card 0 twice) on a request
+    of 16 raw frames against the one-device call, both timed;
+16. [stats]: ``cli/extract_statistics.py::main`` on the CLI files, 64
+    samples at batch 16, timed, and its first 16 draws card vs CPU;
+17. [report]: ``cli/parity_report.py::main`` on the CLI target PNGs, 16
+    frames of self-reenactment without PTI, timed, and 4 frames card vs
+    CPU.
+
+Phases 10-17 run last, so that the readings of 1-8 keep the conditions
 they were first recorded in.
 
 The last two lines are the kernels' numbers and ``{"ok": true, ...}``.
+``python3 chip_smoke.py --only ddp mesh stats report`` runs phases 14-17
+alone (``ddp_cards``: [ddp] (a) and (c), for a call with four cards), with
+no last line.
 """
 
 import copy
+import dataclasses
 import json
 import os
 import shutil
@@ -120,7 +142,10 @@ import torch.nn.functional as F
 PORT = "stylegan_directions_face_reenactment_tpu_torch"
 # the CLI phase writes its checkpoint files here; the port's registry reads
 # the variable when it is first imported
-CLI_DIR = os.path.join(tempfile.gettempdir(), f"chip_smoke_cli_{os.getpid()}")
+# (in the environment, so that the ranks [ddp] spawns, which import this
+# script anew, find the same files)
+CLI_DIR = os.environ.setdefault("CHIP_SMOKE_CLI_DIR", os.path.join(
+    tempfile.gettempdir(), f"chip_smoke_cli_{os.getpid()}"))
 os.environ["REENACT_PRETRAINED_ROOT"] = os.path.join(CLI_DIR, "pretrained")
 try:
     from stylegan_directions_face_reenactment_tpu_torch.configs import MODELS
@@ -336,7 +361,7 @@ def k1_inputs(dtype, gen, batch=BATCH):
     """(call, input) for each K1 call of one synthesis of ``batch`` images
     (BATCH on the serving path, TRAIN_BATCH in a train step)."""
     from stylegan_directions_face_reenactment_tpu_torch.ops.main_path import upfirdn2d_calls
-    return [(c, torch.randn(c.shape, generator=gen, device="cuda").to(dtype))
+    return [(c, torch.randn(c.shape, generator=gen, device=gen.device).to(dtype))
             for c in upfirdn2d_calls(SIZE, CM, batch)]
 
 
@@ -367,11 +392,11 @@ def k3_inputs(dtype, gen, batch=BATCH):
     for shape, n in sorted(Counter(fused_conv_block_calls(batch)).items(),
                            key=lambda kv: -kv[0][2]):
         cs = ((256, 128), (128, 64), (64, 64))
-        inv = [1 + 0.1 * torch.randn(ci, generator=gen, device="cuda") for ci, _ in cs]
-        off = [0.1 * torch.randn(ci, generator=gen, device="cuda") for ci, _ in cs]
-        w = [torch.randn(co, ci, 3, 3, generator=gen, device="cuda") * (2.0 / (9 * co)) ** 0.5
-             for ci, co in cs]
-        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        inv = [1 + 0.1 * torch.randn(ci, generator=gen, device=gen.device) for ci, _ in cs]
+        off = [0.1 * torch.randn(ci, generator=gen, device=gen.device) for ci, _ in cs]
+        w = [torch.randn(co, ci, 3, 3, generator=gen, device=gen.device)
+             * (2.0 / (9 * co)) ** 0.5 for ci, co in cs]
+        x = torch.randn(shape, generator=gen, device=gen.device).to(dtype)
         out.append((shape, n, x, make_k3_args(inv, off, w, dtype)))
     return out
 
@@ -2581,6 +2606,710 @@ def phase_train(smi):
     return results, launches
 
 
+# ---------------------------------------------------------------------------
+# [ddp]: data-parallel training (parallel/mesh.py)
+# ---------------------------------------------------------------------------
+
+DDP_WORLD_MAX = 4                     # (a)'s NCCL world: the cards present, at most 4
+DDP_TIMED = 5                         # the timed steps a rank (median)
+DDP_REDUCE_REPS = 20                  # the timed all-reduces of A's gradient and terms
+
+
+def hold_kernels_at(batches, tag, devices=("cuda:0",)):
+    """K1, K2, K3, K1-bwd and K2-bwd against their plain versions at the
+    shapes a step (or a mesh slot's part) of each of ``batches`` images
+    gives them (a synthesis, a FAN pass, the shifted synthesis's backward),
+    float32 and bf16, on each of ``devices`` (a card's own launch plan and
+    library handle), at phase 3's limits."""
+    t0 = time.perf_counter()
+    for dev in dict.fromkeys(devices):
+        with torch.cuda.device(torch.device(dev)):
+            for batch in sorted(set(batches)):
+                _hold_kernels_at(batch, tag, dev)
+    print(f"[{tag}] kernels held at batches {sorted(set(batches))} on "
+          f"{list(dict.fromkeys(devices))} in {time.perf_counter() - t0:.1f} s")
+
+
+def _hold_kernels_at(batch, tag, dev):
+    from stylegan_directions_face_reenactment_tpu_torch.ops.fused_act import (
+        fused_bias_act_bwd_cuda, fused_bias_act_cuda, fused_leaky_relu_bwd_plain,
+        fused_leaky_relu_plain)
+    from stylegan_directions_face_reenactment_tpu_torch.ops.fused_conv_block import (
+        fused_conv_block_cuda, fused_conv_block_plain)
+    from stylegan_directions_face_reenactment_tpu_torch.ops.main_path import (
+        fused_bias_act_calls, upfirdn2d_calls)
+    from stylegan_directions_face_reenactment_tpu_torch.ops.upfirdn2d import (
+        make_kernel, upfirdn2d, upfirdn2d_output_shape)
+    from stylegan_directions_face_reenactment_tpu_torch.ops.upfirdn2d_kernel import (
+        upfirdn2d_backward, upfirdn2d_bwd_cuda, upfirdn2d_cuda)
+    k = make_kernel((1, 3, 3, 1), gain=4)
+    gen = torch.Generator(device=dev).manual_seed(batch)
+    worst, n = Counter(), 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for call, x in k1_inputs(dtype, gen, batch):
+            got, want = upfirdn2d_cuda(x, k, call.up, call.pad), upfirdn2d(x, k, up=call.up,
+                                                                            pad=call.pad)
+            oh, ow = upfirdn2d_output_shape(x.shape[2], x.shape[3], (4, 4), up=call.up,
+                                            pad=call.pad)
+            g = torch.randn(x.shape[:2] + (oh, ow), generator=gen, device=dev).to(dtype)
+            got_b = upfirdn2d_bwd_cuda(g, k, call.up, call.pad, call.shape)
+            want_b = upfirdn2d_backward(g, k, call.up, call.pad, call.shape)
+            for name, a, b in (("K1", got, want), ("K1-bwd", got_b, want_b)):
+                err = max_err(a, b)
+                need(a.shape == b.shape and err <= limit_for(b),
+                     f"{tag}: {name} {call.name} {tuple(x.shape)} {dtype} disagrees")
+                worst[(name, str(dtype)[6:])] = max(worst[(name, str(dtype)[6:])], err)
+                n += 1
+        for s in fused_bias_act_calls(SIZE, CM, batch) + [(batch, 512)]:
+            x = torch.randn(s, generator=gen, device=dev).to(dtype)
+            b = torch.randn(s[1], generator=gen, device=dev)
+            g = torch.randn(s, generator=gen, device=dev).to(dtype)
+            y = fused_leaky_relu_plain(x, b)
+            for name, a, w in (("K2", fused_bias_act_cuda(x, b), y),
+                               ("K2-bwd", fused_bias_act_bwd_cuda(g, y),
+                                fused_leaky_relu_bwd_plain(g, y))):
+                err = max_err(a, w)
+                need(err <= limit_for(w), f"{tag}: {name} {s} {dtype} disagrees")
+                worst[(name, str(dtype)[6:])] = max(worst[(name, str(dtype)[6:])], err)
+                n += 1
+        for shape, _, x, args in k3_inputs(dtype, gen, batch):
+            got, want = fused_conv_block_cuda(x, args), fused_conv_block_plain(x, args)
+            scale = max(1.0, float(want.float().abs().max()))
+            lim = (K3_F32_TOL if dtype == torch.float32 else BF16_TOL) * scale
+            err = max_err(got, want)
+            need(got.shape == want.shape and err <= lim,
+                 f"{tag}: K3 {shape} {dtype} disagrees")
+            worst[("K3", str(dtype)[6:])] = max(worst[("K3", str(dtype)[6:])], err / scale)
+            n += 1
+    torch.cuda.synchronize()
+    print(f"[{tag}] kernels at batch {batch}'s shapes on {dev} against their plain versions "
+          f"({n} calls, phase 3's limits; K3 relative to max(1, max|plain|)): worst "
+          + ", ".join(f"{k} {d} {v:.3g}" for (k, d), v in sorted(worst.items())))
+
+
+def damped(models):
+    """[train] (c)'s DECA: its head × TRAIN_DECA_HEAD_SCALE."""
+    with torch.no_grad():
+        models.deca.E_flame.layers[2].weight.mul_(TRAIN_DECA_HEAD_SCALE)
+    return models
+
+
+def ddp_args(held):
+    """The steps' arguments, the ID term out: for (a) the defaults else
+    (its ArcFace pools with ``adaptive_avg_pool2d``, whose CUDA backward
+    adds with atomics: no two runs of a step with it are bit-equal), for
+    (b) [train] (c)'s held settings (``fan_frame`` too), and for (b) the
+    same two steps with the ID term in at its default weight ("paired ID",
+    "synthetic ID")."""
+    from stylegan_directions_face_reenactment_tpu_torch.configs import TrainingArguments
+    kw = dict(lambda_identity=0.0)
+    if held:
+        kw["deca_alignment"] = "fan_frame"
+    out = {"paired": TrainingArguments(batch_size=TRAIN_BATCH, training_method="paired",
+                                       **kw),
+           "synthetic": TrainingArguments(batch_size=TRAIN_BATCH, **kw)}
+    if held:
+        for tag in ("paired", "synthetic"):
+            out[f"{tag} ID"] = dataclasses.replace(
+                out[tag], lambda_identity=TrainingArguments().lambda_identity)
+    return out
+
+
+def ddp_extra(models, args, batch):
+    """A paired batch's step inputs, cached coefficients included."""
+    from stylegan_directions_face_reenactment_tpu_torch.train import make_shape_program
+    shape = make_shape_program(models, args)
+    extra = [torch.from_numpy(batch[k]).cuda() for k in
+             ("source_latent_code", "target_latent_code", "target_img")]
+    return extra + [*shape(torch.from_numpy(batch["source_img"]).cuda()),
+                    *shape(torch.from_numpy(batch["target_img"]).cuda())]
+
+
+def tree_to(x, device):
+    """A tree (dicts, lists) with every tensor on ``device``."""
+    if isinstance(x, dict):
+        return {k: tree_to(v, device) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [tree_to(v, device) for v in x]
+    return x.to(device) if isinstance(x, torch.Tensor) else x
+
+
+def step_result(a, terms):
+    """(terms, A's gradient, A) after an optimizer step, on the CPU."""
+    return ({k: float(v) for k, v in terms.items()},
+            {n.split(".")[-1]: p.grad.detach().cpu().clone() for n, p in a.named_parameters()},
+            {n.split(".")[-1]: p.detach().cpu().clone() for n, p in a.named_parameters()})
+
+
+class deterministic:
+    """cuDNN's deterministic algorithms and PyTorch's deterministic ops
+    inside the block (warnings where an op has none): (a)'s comparison
+    needs two runs of one step to be bit-equal."""
+
+    def __enter__(self):
+        self.before = (torch.backends.cudnn.deterministic,
+                       torch.are_deterministic_algorithms_enabled())
+        torch.backends.cudnn.deterministic = True
+        torch.use_deterministic_algorithms(True, warn_only=True)
+
+    def __exit__(self, *exc):
+        torch.backends.cudnn.deterministic = self.before[0]
+        torch.use_deterministic_algorithms(self.before[1])
+
+
+def ddp_rank(mode, inputs_path):
+    """A rank of [ddp] (a) (``mode`` "a": NCCL, a card a rank, the
+    defaults) or (b) ("b": gloo, both ranks on card 0, [train] (c)'s held
+    settings): the paired step's (and for (b) the synthetic step's) first
+    update of A from seed 1 on this rank's rows of the batch, then the
+    paired step timed, its launches counted, and an all-reduce of A's
+    gradient and terms timed."""
+    import torch.distributed as dist
+
+    from stylegan_directions_face_reenactment_tpu_torch.geometry import initialize_directions
+    from stylegan_directions_face_reenactment_tpu_torch.parallel import (
+        shard_batch, world_info)
+    from stylegan_directions_face_reenactment_tpu_torch.train import (
+        make_optimizer, make_paired_step, make_synthetic_step)
+    from stylegan_directions_face_reenactment_tpu_torch.weights import init_direction_matrix
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank, world = world_info()
+    held = mode == "b"
+    models = train_models("cuda")
+    if held:
+        damped(models)
+    args, spec = ddp_args(held), initialize_directions()
+    extra = [shard_batch(x) for x in tree_to(torch.load(inputs_path, weights_only=False), "cuda")]
+    out = {"device": str(torch.cuda.current_device())}
+    a = init_direction_matrix(1, device="cuda")
+    step = make_paired_step(models, spec, args["paired"], make_optimizer(a, args["paired"]),
+                            cached_shape=True)
+    if held:
+        out["paired"] = step_result(a, step(a, None, *extra))
+    else:
+        with deterministic():
+            out["paired"] = step_result(a, step(a, None, *extra))
+    if held:
+        for tag in ("synthetic", "paired ID", "synthetic ID"):
+            a_s = init_direction_matrix(1, device="cuda")
+            if tag.startswith("paired"):
+                s_step = make_paired_step(models, spec, args[tag],
+                                          make_optimizer(a_s, args[tag]), cached_shape=True)
+                out[tag] = step_result(a_s, s_step(a_s, None, *extra))
+            else:
+                s_step = make_synthetic_step(models, spec, args[tag],
+                                             make_optimizer(a_s, args[tag]))
+                out[tag] = step_result(
+                    a_s, s_step(a_s, torch.Generator(device="cuda").manual_seed(11)))
+    step(a, None, *extra)                                     # warm-up
+    times, launches = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(DDP_TIMED):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        step(a, None, *extra)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        launches.append(read_all_counts())
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    flat = torch.randn(sum(p.numel() for p in a.parameters()) + len(out["paired"][0]),
+                       device="cuda")
+    reduce_ms = []
+    for i in range(DDP_REDUCE_REPS + 3):
+        dist.barrier()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        dist.all_reduce(flat)
+        end.record()
+        torch.cuda.synchronize()
+        if i >= 3:
+            reduce_ms.append(start.elapsed_time(end))
+    out.update(step_ms=statistics.median(times), step_ms_range=(min(times), max(times)),
+               launches=launches, reduce_ms=statistics.median(reduce_ms),
+               reduce_numel=flat.numel(), rows=int(extra[0].shape[0]), rank=rank,
+               world=world)
+    return out
+
+
+def one_process_step(models, args, builder, extra, gen_seed=None, scale=1.0, **kw):
+    """The one-process batch-TRAIN_BATCH step from A at seed 1 (its weight
+    × ``scale``): (terms, gradient, A) after the optimizer step."""
+    from stylegan_directions_face_reenactment_tpu_torch.geometry import initialize_directions
+    from stylegan_directions_face_reenactment_tpu_torch.train import make_optimizer
+    from stylegan_directions_face_reenactment_tpu_torch.weights import init_direction_matrix
+    a = init_direction_matrix(1, device="cuda")
+    with torch.no_grad():
+        a.linear.weight.mul_(scale)
+    gen = None if gen_seed is None else torch.Generator(device="cuda").manual_seed(gen_seed)
+    step = builder(models, initialize_directions(), args, make_optimizer(a, args), **kw)
+    return step_result(a, step(a, gen, *extra))
+
+
+def held_against(tag, rank_res, plain, witness):
+    """(b)'s comparison of a rank's step with the one-process step, at
+    [train] (c)'s limits: the loss terms rtol TRAIN_LOSS_RTOL; A's
+    gradient rtol TRAIN_GRAD_RTOL, atol TRAIN_GRAD_ATOL·max; A's update,
+    Adam's first (about ±lr an element, by the sign of gradient + weight
+    decay), equal except where that sum is within the gradient's atol of
+    0, and never more than 2·lr apart. Returns the printed gaps."""
+    terms, grads, weights = rank_res
+    p_terms, p_grads, p_weights = plain
+    t_gap = {k: abs(terms[k] - v) / max(abs(v), 1e-12) for k, v in p_terms.items()
+             if k != "grad_norm"}
+    g_gap = {k: max_err(grads[k], v) / float(v.abs().max()) for k, v in p_grads.items()}
+    ok_t = set(terms) == set(p_terms) and all(v <= TRAIN_LOSS_RTOL for v in t_gap.values())
+    ok_g = all(allclose_scaled(grads[k], v, TRAIN_GRAD_RTOL, TRAIN_GRAD_ATOL)
+               for k, v in p_grads.items())
+    from stylegan_directions_face_reenactment_tpu_torch.configs import TrainingArguments
+    from stylegan_directions_face_reenactment_tpu_torch.weights import init_direction_matrix
+    start = dict(init_direction_matrix(1, device="cpu").linear.named_parameters())
+    lr = TrainingArguments().lr
+    flips, ok_a = 0, True
+    for k, w in p_weights.items():
+        moved = (weights[k] - w).abs()
+        # the gradient Adam saw: A's gradient plus the weight decay term
+        g_eff = p_grads[k] + TrainingArguments().weight_decay * start[k].detach()
+        near_zero = g_eff.abs() <= TRAIN_GRAD_ATOL * float(p_grads[k].abs().max())
+        differ = moved > 1e-3 * lr
+        flips += int(differ.sum())
+        ok_a = ok_a and bool((moved <= 2.001 * lr).all()) and bool((~differ | near_zero).all())
+    print(f"[ddp] (b) {tag}: loss terms |rank - one process| relative "
+          + ", ".join(f"{k} {v:.3g}" for k, v in t_gap.items())
+          + f" ({ok_t}); A's gradient max |diff| of max "
+          + ", ".join(f"{k} {v:.3g}" for k, v in g_gap.items())
+          + f" ({ok_g}); A's update differs in {flips} elements, each where the gradient "
+          f"Adam saw is within the atol of 0 ({ok_a}); witness {witness:.3g} of max")
+    need(witness <= TRAIN_WITNESS_MAX, f"[ddp] (b) {tag}: the one-process gradient jumps "
+         "under a 1e-6 change of A: no comparison can hold")
+    need(ok_t and ok_g and ok_a, f"[ddp] (b) {tag}: a rank of the world of 2 disagrees with "
+         "the one-process step")
+
+
+def id_held_against(tag, ranks, plain):
+    """(b) with the ID term in: every rank's loss terms, ``loss_identity``
+    included, against the one-process step's at [train] (c)'s rtol
+    TRAIN_LOSS_RTOL, and A's gradient at its rtol TRAIN_GRAD_RTOL and atol
+    TRAIN_GRAD_ATOL·max (ArcFace's pooling backward adds with atomics, so
+    the update is not compared element by element)."""
+    p_terms, p_grads, _ = plain
+    for r in ranks:
+        terms, grads, _ = r[tag]
+        t_gap = {k: abs(terms[k] - v) / max(abs(v), 1e-12) for k, v in p_terms.items()
+                 if k != "grad_norm"}
+        g_gap = {k: max_err(grads[k], v) / float(v.abs().max()) for k, v in p_grads.items()}
+        ok_t = (set(terms) == set(p_terms) and "loss_identity" in t_gap
+                and all(v <= TRAIN_LOSS_RTOL for v in t_gap.values()))
+        ok_g = all(allclose_scaled(grads[k], v, TRAIN_GRAD_RTOL, TRAIN_GRAD_ATOL)
+                   for k, v in p_grads.items())
+        print(f"[ddp] (b) {tag} (lambda_identity at its default), rank {r['rank']}: loss "
+              "terms |rank - one process| relative "
+              + ", ".join(f"{k} {v:.3g}" for k, v in t_gap.items())
+              + f" ({ok_t}); A's gradient max |diff| of max "
+              + ", ".join(f"{k} {v:.3g}" for k, v in g_gap.items()) + f" ({ok_g})")
+        need(ok_t and ok_g, f"[ddp] (b) {tag}: rank {r['rank']} disagrees with the "
+             "one-process step")
+
+
+def print_ranks(label, ranks, want, smi):
+    for r in ranks:
+        need(all(c == want for c in r["launches"]),
+             f"[ddp] {label} rank {r['rank']}: launches {r['launches'][-1]}, expected {want}")
+        print(f"[ddp] {label} rank {r['rank']} of {r['world']} (cuda:{r['device']}, "
+              f"{r['rows']} rows): paired step (cached coefficients) {r['step_ms']:.3f} ms "
+              f"(median of {DDP_TIMED}, {r['step_ms_range'][0]:.3f}-"
+              f"{r['step_ms_range'][1]:.3f}; host clock, synchronized), all-reduce of "
+              f"{r['reduce_numel']} float32 (A's gradient and the terms) "
+              f"{r['reduce_ms']:.4f} ms (CUDA events, median of {DDP_REDUCE_REPS}), peak "
+              f"{r['peak_bytes']} bytes ({r['peak_bytes'] / 2**30:.3f} GiB), launches a step "
+              + ", ".join(f"{k} {v}" for k, v in r["launches"][-1].items())
+              + f" (expected {dict(want)}) on {smi}")
+
+
+def phase_ddp(smi, tree, parts=("a", "b", "c")):
+    """[ddp]: (a) the paired step over an NCCL world of the cards present
+    (at most DDP_WORLD_MAX) against the one-process step; (b) two gloo
+    ranks on card 0, each half of a batch-12 paired and synthetic step,
+    against the one-process steps at [train] (c)'s limits, and both again
+    with the ID term in (terms and gradient held); (c)
+    ``run_trainer.main --n_devices`` over the cards when there are two or
+    more. The kernels are held at the per-rank shapes."""
+    from stylegan_directions_face_reenactment_tpu_torch.data import CustomDatasetPaired, Loader
+    from stylegan_directions_face_reenactment_tpu_torch.train import (
+        make_paired_step, make_synthetic_step)
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    world_a = min(cards, DDP_WORLD_MAX)
+    if cards > 1:
+        r = subprocess.run(["nvidia-smi", "--query-gpu=index,name,power.limit",
+                            "--format=csv,noheader"], capture_output=True, text=True,
+                           timeout=60)
+        print("[ddp] the cards: " + "; ".join(r.stdout.strip().splitlines()))
+    batch = next(iter(Loader(CustomDatasetPaired(tree, seed=0), TRAIN_BATCH, seed=0)))
+    launches = Counter()
+    paths, plain = {}, {}
+    ranks, ranks_b = [], []
+    for mode in [p for p in ("a", "b") if p in parts]:
+        models = train_models("cuda")
+        if mode == "b":
+            damped(models)
+        args = ddp_args(mode == "b")
+        extra = ddp_extra(models, args["paired"], batch)
+        paths[mode] = os.path.join(CLI_DIR, f"ddp_inputs_{mode}.pt")
+        torch.save(tree_to(extra, "cpu"), paths[mode])
+        if mode == "a":
+            # twice with deterministic algorithms (bit-equal, or no comparison
+            # with the world's step can be), once without
+            with deterministic():
+                runs = [one_process_step(models, args["paired"], make_paired_step, extra,
+                                         cached_shape=True) for _ in range(2)]
+            free = one_process_step(models, args["paired"], make_paired_step, extra,
+                                    cached_shape=True)
+            plain["a"] = {"paired": runs[0]}
+            self_equal = all(torch.equal(runs[0][2][k], runs[1][2][k]) for k in runs[0][2])
+            free_gap = {k: max_err(free[1][k], v) / float(v.abs().max())
+                        for k, v in runs[0][1].items()}
+            print(f"[ddp] the one-process paired step run twice with deterministic "
+                  f"algorithms: A's update bit-equal {self_equal}; without them, A's "
+                  "gradient max |diff| of max "
+                  + ", ".join(f"{k} {v:.3g}" for k, v in free_gap.items()))
+            need(self_equal, "[ddp]: the deterministic one-process step is not reproducible")
+        else:
+            plain[mode] = {"paired": one_process_step(models, args["paired"],
+                                                      make_paired_step, extra,
+                                                      cached_shape=True)}
+        if mode == "b":
+            moved = one_process_step(models, args["paired"], make_paired_step, extra,
+                                     scale=1 + 1e-6, cached_shape=True)
+            plain["b"]["synthetic"] = one_process_step(models, args["synthetic"],
+                                                       make_synthetic_step, [], gen_seed=11)
+            plain["b"]["paired ID"] = one_process_step(models, args["paired ID"],
+                                                       make_paired_step, extra,
+                                                       cached_shape=True)
+            plain["b"]["synthetic ID"] = one_process_step(models, args["synthetic ID"],
+                                                          make_synthetic_step, [], gen_seed=11)
+            moved_s = one_process_step(models, args["synthetic"], make_synthetic_step, [],
+                                       gen_seed=11, scale=1 + 1e-6)
+            witness = {tag: max_err(m[1]["weight"], plain["b"][tag][1]["weight"])
+                       / float(plain["b"][tag][1]["weight"].abs().max())
+                       for tag, m in (("paired", moved), ("synthetic", moved_s))}
+        del models
+        torch.cuda.empty_cache()
+
+    # (a) NCCL, a card a rank
+    if "a" in parts:
+        ranks = ddp_world_a(smi, paths["a"], plain["a"], world_a, cards, launches)
+    if "b" in parts:
+        ranks_b = ddp_world_b(smi, paths["b"], plain["b"], witness, launches)
+    if "c" in parts:
+        ddp_cli(smi, cards)
+    # the kernels at the rows a rank: (b)'s two ranks on card 0, and the
+    # multi-card worlds' on each of their cards
+    if "b" in parts:
+        hold_kernels_at([TRAIN_BATCH // 2], "ddp")
+    multi = [TRAIN_BATCH // world_a] if "a" in parts and world_a > 1 else []
+    if "c" in parts and cards >= 2:
+        n, b = ddp_cli_world(cards)
+        multi.append(b // n)
+    if multi:
+        hold_kernels_at(multi, "ddp", [f"cuda:{i}" for i in range(world_a)])
+    print(f"[ddp] phase wall {time.perf_counter() - t_phase:.1f} s")
+    return launches, ranks, ranks_b
+
+
+def ddp_world_a(smi, path, plain, world_a, cards, launches):
+    """(a): the paired step over an NCCL world of ``world_a`` cards."""
+    from stylegan_directions_face_reenactment_tpu_torch.parallel import launch
+    t0 = time.perf_counter()
+    ranks = launch(ddp_rank, world_a, "a", path, backend="nccl", timeout=600)
+    wall_a = time.perf_counter() - t0
+    want = Counter(train_step_launches("paired"))
+    print_ranks("(a) NCCL", ranks, want, smi)
+    for r in ranks:
+        for c in r["launches"]:
+            launches.update(c)
+    w0 = ranks[0]["paired"][2]
+    same = all(torch.equal(r["paired"][2][k], w0[k]) for r in ranks for k in w0)
+    if world_a == 1:
+        equal = all(torch.equal(w0[k], plain["paired"][2][k]) for k in w0)
+        gap = {k: max_err(ranks[0]["paired"][1][k], v) / float(v.abs().max())
+               for k, v in plain["paired"][1].items()}
+        print(f"[ddp] (a) a world of 1 (cards present: {cards}): A's update from the "
+              f"data-parallel step bit-equal to the plain step's (deterministic algorithms "
+              f"in both): {equal} (gradient max |diff| of max "
+              + ", ".join(f"{k} {v:.3g}" for k, v in gap.items()) + f"); world wall "
+              f"{wall_a:.3f} s (spawn, set-up and the timed steps) on {smi}")
+        need(equal, "[ddp] (a): the data-parallel step's update differs from the plain step's")
+    else:
+        # the all-reduce sums the ranks' gradients in its own order:
+        # printed, not held; the held comparison is (b)'s
+        terms, grads, _ = ranks[0]["paired"]
+        p_terms, p_grads, _ = plain["paired"]
+        print(f"[ddp] (a) a world of {world_a}: against the one-process step (printed, not "
+              "held): loss terms relative "
+              + ", ".join(f"{k} {abs(terms[k] - v) / max(abs(v), 1e-12):.3g}"
+                          for k, v in p_terms.items())
+              + "; A's gradient max |diff| of max "
+              + ", ".join(f"{k} {max_err(grads[k], v) / float(v.abs().max()):.3g}"
+                          for k, v in p_grads.items())
+              + f"; world wall {wall_a:.3f} s on {smi}")
+    need(same, "[ddp] (a): the ranks hold different A after the step")
+    return ranks
+
+
+def ddp_world_b(smi, path, plain, witness, launches):
+    """(b): two gloo ranks on card 0 against the one-process steps."""
+    from stylegan_directions_face_reenactment_tpu_torch.parallel import launch
+    want = Counter(train_step_launches("paired"))
+    t0 = time.perf_counter()
+    ranks_b = launch(ddp_rank, 2, "b", path, backend="gloo", timeout=600)
+    wall_b = time.perf_counter() - t0
+    print_ranks("(b) gloo on one card", ranks_b, want, smi)
+    for r in ranks_b:
+        for c in r["launches"]:
+            launches.update(c)
+    for tag in ("paired", "synthetic"):
+        need(all(torch.equal(r[tag][2][k], ranks_b[0][tag][2][k]) for r in ranks_b
+                 for k in ranks_b[0][tag][2]), f"[ddp] (b) {tag}: the ranks hold different A")
+        held_against(tag, ranks_b[0][tag], plain[tag], witness[tag])
+    for tag in ("paired ID", "synthetic ID"):
+        id_held_against(tag, ranks_b, plain[tag])
+    print(f"[ddp] (b) world wall {wall_b:.3f} s (spawn, set-up and the timed steps)")
+    return ranks_b
+
+
+def ddp_cli_world(cards):
+    """(c)'s world and global batch: TRAIN_BATCH rounded up so that each
+    disentanglement-50 half divides the world."""
+    n = min(cards, DDP_WORLD_MAX)
+    return n, 2 * n * -(-TRAIN_BATCH // (2 * n))
+
+
+def ddp_cli(smi, cards):
+    """(c): ``run_trainer.main --n_devices`` over the cards, 2 steps."""
+    from stylegan_directions_face_reenactment_tpu_torch.cli import run_trainer
+    if cards >= 2:
+        n, b = ddp_cli_world(cards)
+        t0 = time.perf_counter()
+        _, a = run_trainer.main(["--training_method", "synthetic", "--n_steps", "2",
+                                 "--batch_size", str(b), "--no_evaluation", "--n_devices",
+                                 str(n), "--experiment_path", os.path.join(CLI_DIR, "ddp_c")])
+        wall = time.perf_counter() - t0
+        logs = [json.loads(x) for x in open(os.path.join(
+            CLI_DIR, "ddp_c_voxceleb_synthetic", "logs", "train_log.jsonl"))]
+        print(f"[ddp] (c) run_trainer.main --n_devices {n} --batch_size {b}, 2 steps: wall "
+              f"{wall:.3f} s (spawn and loading included), losses "
+              + ", ".join(f"{r['loss']:.3f}" for r in logs) + f" on {smi}")
+        need(bool(torch.isfinite(a.linear.weight).all()) and len(logs) == 1,
+             "[ddp] (c): A is not finite or the log is not rank 0's")
+    else:
+        print(f"[ddp] (c) run_trainer.main --n_devices: not run, {cards} card present (it "
+              "spawns a rank a card; NCCL refuses two ranks on one card)")
+
+
+# ---------------------------------------------------------------------------
+# [mesh]: frame data parallelism in one process
+# ---------------------------------------------------------------------------
+
+MESH_REQUEST, MESH_RUNS = 16, 5
+
+
+def phase_mesh(smi):
+    """[mesh]: ``make_mesh`` past the cards raises; a slice-2 request of 16
+    raw frames through ``make_fused_reenact_fn`` over a two-slot mesh (two
+    cards, or card 0 twice) against the one-device call, and both timed;
+    once more in bf16, held at the bf16 synthesis limit; the kernels held at
+    a slot's rows on each card of the mesh."""
+    from stylegan_directions_face_reenactment_tpu_torch.geometry import initialize_directions
+    from stylegan_directions_face_reenactment_tpu_torch.models.stylegan2 import (
+        mapping, mean_latent, style_to_wplus, synthesis)
+    from stylegan_directions_face_reenactment_tpu_torch.parallel import make_mesh
+    from stylegan_directions_face_reenactment_tpu_torch.pipeline import (
+        make_fused_reenact_fn, source_shape)
+    cards = torch.cuda.device_count()
+    try:
+        make_mesh(cards + 1)
+        raised = False
+    except ValueError:
+        raised = True
+    need(raised, f"[mesh] make_mesh({cards + 1}) with {cards} card(s) did not raise")
+    devs = ["cuda:0", "cuda:1"] if cards >= 2 else ["cuda:0", "cuda:0"]
+    mesh = make_mesh(devices=devs)
+    g, a, deca, sfd, fan = build_slice2_nets(None)
+    spec = initialize_directions("voxceleb", 15, 6.0)
+    with torch.inference_mode():
+        trunc = mean_latent(g, torch.Generator().manual_seed(3), 4096)
+        z = torch.randn(1, 512, generator=torch.Generator().manual_seed(4)).cuda()
+        code = style_to_wplus(g, [mapping(g, z)])
+        ps, ang = source_shape(deca, synthesis(g, code), fan, sfd)
+    frames = torch.randint(0, 256, (MESH_REQUEST,) + FRAME_HW + (3,),
+                           generator=torch.Generator().manual_seed(22),
+                           dtype=torch.uint8).cuda()
+    kw = dict(truncation=0.7, truncation_latent=trunc, fan_params=fan, s3fd_params=sfd,
+              outputs="full")
+    fns = {"one device": make_fused_reenact_fn(g, a, deca, spec, sfd, fan, **kw),
+           f"mesh {devs}": make_fused_reenact_fn(g, a, deca, spec, sfd, fan, mesh=mesh, **kw)}
+    outs, fps, launches = {}, {}, Counter()
+    for tag, fn in fns.items():
+        torch.cuda.synchronize()
+        reset_counts()
+        outs[tag] = fn(code, ps, ang, frames)
+        torch.cuda.synchronize()
+        got = read_counts()
+        parts = 1 if tag == "one device" else 2
+        want = (parts * K1_PER_REQUEST, parts * K2_PER_REQUEST, parts * K3_PER_REQUEST)
+        need(got == want, f"[mesh] {tag}: K1/K2/K3 launched {got}, expected {want}")
+        launches.update(dict(zip(("K1", "K2", "K3"), got)))
+        rates = []
+        for _ in range(MESH_RUNS):
+            t0 = time.perf_counter()
+            fn(code, ps, ang, frames)
+            torch.cuda.synchronize()
+            rates.append(MESH_REQUEST / (time.perf_counter() - t0))
+        fps[tag] = (statistics.median(rates), min(rates), max(rates))
+    (r1, l1, c1, ok1, in1, p1), (r2, l2, c2, ok2, in2, p2) = outs.values()
+    img_ok = allclose_scaled(r2.float().cpu(), r1.float().cpu(), 1e-3, 2e-4)
+    lat_ok = allclose_scaled(l2.cpu(), l1.cpu(), 1e-4, 1e-4)
+    same_masks = torch.equal(ok1, ok2) and torch.equal(in1, in2) and torch.equal(p1, p2)
+    crop_diff = int((c1.int() - c2.int()).abs().max())
+    print(f"[mesh] make_mesh({cards + 1}) with {cards} card(s) raises ValueError; "
+          f"make_fused_reenact_fn over {devs} on a request of {MESH_REQUEST} raw "
+          f"{FRAME_HW[0]}x{FRAME_HW[1]} frames against one device: images rtol 1e-3, atol "
+          f"2e-4*max {img_ok} (max |diff| {max_err(r2, r1):.3g}); latents {lat_ok}; ok, "
+          f"in_frame and landmarks identical, in frame order {same_masks}; crops max diff "
+          f"{crop_diff}; " + "; ".join(f"{tag} {v[0]:.2f} frames/s (median of {MESH_RUNS}, "
+                                      f"{v[1]:.2f}-{v[2]:.2f})" for tag, v in fps.items())
+          + f" on {smi}")
+    need(img_ok and lat_ok and same_masks and crop_diff <= 1,
+         "[mesh] the mesh's frames disagree with the one-device call")
+    # bf16 (K3's wgmma path on each card of the mesh), once each
+    kw16 = dict(kw, compute_dtype=torch.bfloat16)
+    reset_counts()
+    b2 = make_fused_reenact_fn(g, a, deca, spec, sfd, fan, mesh=mesh, **kw16)(
+        code, ps, ang, frames)
+    torch.cuda.synchronize()
+    launches.update(dict(zip(("K1", "K2", "K3"), read_counts())))
+    b1 = make_fused_reenact_fn(g, a, deca, spec, sfd, fan, **kw16)(code, ps, ang, frames)
+    drift = mean_rel(b2[0].float(), b1[0].float())
+    print(f"[mesh] bf16 over {devs} against one device: ok and in_frame identical "
+          f"{torch.equal(b1[3], b2[3]) and torch.equal(b1[4], b2[4])}, image mean relative "
+          f"drift {drift:.3g} (limit {BF16_SYNTH})")
+    need(torch.equal(b1[3], b2[3]) and torch.equal(b1[4], b2[4]) and drift <= BF16_SYNTH,
+         "[mesh] bf16: the mesh's frames disagree with the one-device call")
+    # each slot's part: K1, K2 and K3 at its rows, on each card of the mesh
+    hold_kernels_at([MESH_REQUEST // len(devs)], "mesh", devs)
+    return launches, fps
+
+
+# ---------------------------------------------------------------------------
+# [stats] and [report]: the metric CLIs
+# ---------------------------------------------------------------------------
+
+STATS_SAMPLES, STATS_BATCH, STATS_CPU = 64, 16, 8
+REPORT_FRAMES, REPORT_CPU_FRAMES = 16, 2
+
+
+def phase_stats(smi):
+    """[stats]: ``extract_statistics.main`` on the CLI files (``fan``
+    alignment) for STATS_SAMPLES samples at batch STATS_BATCH, timed; its
+    first STATS_CPU draws (one batch) on the card against the CPU: angles atol 1e-2
+    degrees, jaw and expressions rtol 1e-3 and atol 1e-3·max|column| (the
+    DECA encoder bound)."""
+    from stylegan_directions_face_reenactment_tpu_torch.cli import extract_statistics as st
+    from stylegan_directions_face_reenactment_tpu_torch.cli import model_loading as ml
+    out = os.path.join(CLI_DIR, "stats")
+    argv = ["--batch_size", str(STATS_BATCH), "--deca_alignment", "fan"]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    r64 = st.main(argv + ["--num_samples", str(STATS_SAMPLES), "--output_path", out + "_64"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_all_counts()
+    # the per-batch program alone, on loaded nets
+    g = ml.load_generator()
+    deca = ml.load_deca()
+    sfd, fan = ml.load_face_models()
+    trunc = ml.compute_trunc(g)
+    gen = torch.Generator().manual_seed(0)
+    zs = [torch.randn((STATS_BATCH, 512), generator=gen).cuda()
+          for _ in range(STATS_SAMPLES // STATS_BATCH)]
+    st.batch_rows(g, deca, zs[0], truncation=0.7, truncation_latent=trunc, fan=fan, s3fd=sfd)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for z in zs:
+        st.batch_rows(g, deca, z, truncation=0.7, truncation_latent=trunc, fan=fan, s3fd=sfd)
+    torch.cuda.synchronize()
+    sps = STATS_SAMPLES / (time.perf_counter() - t0)
+    small = ["--batch_size", str(STATS_CPU), "--deca_alignment", "fan", "--num_samples",
+             str(STATS_CPU)]
+    card = st.main(small + ["--output_path", out + "_card"])
+    t0 = time.perf_counter()
+    cpu = st.main(small + ["--output_path", out + "_cpu", "--device", "cpu"])
+    cpu_s = time.perf_counter() - t0
+    ang_err = float(np.abs(card[:3] - cpu[:3]).max())
+    rest_ok = bool(np.all(np.abs(card[3:] - cpu[3:])
+                          <= 1e-3 * np.abs(cpu[3:]).max(axis=1, keepdims=True)
+                          + 1e-3 * np.abs(cpu[3:])))
+    rest_err = float((np.abs(card[3:] - cpu[3:]).max(axis=1)
+                      / np.abs(cpu[3:]).max(axis=1).clip(1e-12)).max())
+    print(f"[stats] extract_statistics.main --num_samples {STATS_SAMPLES} --batch_size "
+          f"{STATS_BATCH} --deca_alignment fan: wall {wall:.3f} s (loading included), ranges "
+          f"{r64.shape} {r64.dtype}; the per-batch program alone {sps:.2f} samples/s on "
+          f"{smi}; launches " + ", ".join(f"{k} {v}" for k, v in launches.items())
+          + f"; the first {STATS_CPU} draws card vs CPU ({cpu_s:.1f} s on the CPU): angles "
+          f"max |diff| {ang_err:.3g} deg (atol 1e-2), jaw and expressions worst max |diff| "
+          f"of max|column| {rest_err:.3g} (rtol 1e-3, atol 1e-3*max: {rest_ok})")
+    need(r64.shape == (54, 2) and np.isfinite(r64).all() and (r64[:, 0] <= r64[:, 1]).all(),
+         "[stats] the ranges are not a finite (54, 2) min/max table")
+    need(ang_err <= 1e-2 and rest_ok, "[stats] the card's ranges disagree with the CPU's")
+    need(launches["K1"] > 0 and launches["K2"] > 0 and launches["K3"] > 0,
+         f"[stats] launches {launches}")
+    return launches, sps, wall
+
+
+def phase_report(smi, targets):
+    """[report]: ``parity_report.main`` on the CLI phase's target PNGs,
+    self-reenactment, no PTI: REPORT_FRAMES frames on the card (timed);
+    the first REPORT_CPU_FRAMES on the card and on the CPU, whose reports
+    must hold the same keys and values and metrics within CSIM atol 2e-3,
+    pose atol 0.1 degree, expression atol 2e-3."""
+    from stylegan_directions_face_reenactment_tpu_torch.cli import parity_report
+    argv = ["--target_path", targets, "--no-optimize_generator"]
+    out = os.path.join(CLI_DIR, "report")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    rep = parity_report.main(argv + ["--max_frames", str(REPORT_FRAMES), "--output_path",
+                                     out + "_16"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_all_counts()
+    small = argv + ["--max_frames", str(REPORT_CPU_FRAMES)]
+    card = parity_report.main(small + ["--output_path", out + "_card"])
+    t0 = time.perf_counter()
+    cpu = parity_report.main(small + ["--output_path", out + "_cpu", "--device", "cpu"])
+    cpu_s = time.perf_counter() - t0
+    same = (set(rep) == set(cpu) == set(card)
+            and all(card[k] == cpu[k] for k in cpu if k not in ("metrics", "per_frame_std")))
+    gaps = {k: abs(card["metrics"][k] - cpu["metrics"][k]) for k in cpu["metrics"]}
+    lims = {"csim": 2e-3, "pose_error_deg": 0.1, "expression_error": 2e-3}
+    print(f"[report] parity_report.main --max_frames {REPORT_FRAMES} (self-reenactment, no "
+          f"PTI): wall {wall:.3f} s (loading and set-up included) on {smi}; metrics "
+          + ", ".join(f"{k} {v:.4f}" for k, v in rep["metrics"].items())
+          + f" over {rep['n_frames']} frames ({rep['n_frames_dropped_no_detection']} dropped); "
+          f"launches " + ", ".join(f"{k} {v}" for k, v in launches.items())
+          + f"; {REPORT_CPU_FRAMES} frames card vs CPU ({cpu_s:.1f} s on the CPU): keys and "
+          f"values equal {same}; |card - CPU| "
+          + ", ".join(f"{k} {v:.3g} (atol {lims[k]})" for k, v in gaps.items()))
+    need(same and all(gaps[k] <= lims[k] for k in gaps),
+         "[report] the card's report disagrees with the CPU's")
+    need(launches["K1"] > 0 and launches["K2"] > 0 and launches["K3"] > 0,
+         f"[report] launches {launches}")
+    return launches, wall
+
+
 def main():
     name, smi = phase_device()
     torch.backends.cudnn.allow_tf32 = False
@@ -2605,6 +3334,11 @@ def main():
         grad_launches = phase_grad()
         flame_ms = phase_flame()
         train, train_launches = phase_train(smi)   # on the CLI phase's files
+        # after [train], so that every earlier phase reads as it was recorded
+        ddp_launches, ddp_a, ddp_b = phase_ddp(smi, os.path.join(CLI_DIR, "train_vox"))
+        mesh_launches, mesh_fps = phase_mesh(smi)
+        stats_launches, stats_sps, stats_wall = phase_stats(smi)
+        report_launches, report_wall = phase_report(smi, os.path.join(CLI_DIR, "targets"))
     finally:
         shutil.rmtree(CLI_DIR, ignore_errors=True)
     for label, res in (("slice 1, resize path", results),
@@ -2634,7 +3368,17 @@ def main():
               f"({r['ms_min']:.3f}-{r['ms_max']:.3f}), peak {r['peak_bytes']} bytes on {smi}")
     print(f"[result] run_trainer walls: (a) synthetic {train['walls'][0]:.3f} s, (b) paired "
           f"{train['walls'][1]:.3f} s on {smi}")
-    apps = (cli_launches, edit_launches, invert_launches, train_launches)
+    for label, ranks in (("(a) NCCL", ddp_a), ("(b) gloo, one card", ddp_b)):
+        for r in ranks:
+            print(f"[result] [ddp] {label} rank {r['rank']} of {r['world']}: paired step "
+                  f"{r['step_ms']:.3f} ms at {r['rows']} rows, all-reduce {r['reduce_ms']:.4f}"
+                  f" ms, peak {r['peak_bytes']} bytes on {smi}")
+    print(f"[result] [mesh] " + ", ".join(f"{k} {v[0]:.2f} frames/s" for k, v in
+                                          mesh_fps.items())
+          + f"; [stats] {stats_sps:.2f} samples/s (main wall {stats_wall:.3f} s); [report] "
+          f"wall {report_wall:.3f} s for {REPORT_FRAMES} frames on {smi}")
+    apps = (cli_launches, edit_launches, invert_launches, train_launches,
+            Counter(ddp_launches), Counter(mesh_launches), stats_launches, report_launches)
     launches = [launches[0] + launches2[0] + fwd3[0] + sum(c["K1"] for c in apps),
                 launches[1] + launches2[1] + fwd3[1] + sum(c["K2"] for c in apps),
                 launches2[2] + fwd3[2] + grad_launches["K3"] + sum(c["K3"] for c in apps),
@@ -2679,9 +3423,38 @@ def main():
                                               "count": torch.cuda.device_count()}}))
 
 
+def main_only(names):
+    """``python3 chip_smoke.py --only ddp [ddp_cards] [mesh] [stats]
+    [report]``: those phases of slice 8 alone, after the device, the build
+    and the CLI and train inputs (``ddp_cards`` is [ddp]'s (a) and (c), the
+    multi-card parts, for a machine with several cards). It prints no last
+    line."""
+    _, smi = phase_device()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    phase_build()
+    phases = {"ddp": lambda: phase_ddp(smi, tree),
+              "ddp_cards": lambda: phase_ddp(smi, tree, parts=("a", "c")),
+              "mesh": lambda: phase_mesh(smi), "stats": lambda: phase_stats(smi),
+              "report": lambda: phase_report(smi, os.path.join(CLI_DIR, "targets"))}
+    need(names and all(n in phases for n in names), f"--only takes phases of {list(phases)}")
+    try:
+        write_cli_inputs()
+        tree = write_train_inputs()
+        for n in names:
+            t0 = time.perf_counter()
+            phases[n]()
+            print(f"[only] {n}: {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(CLI_DIR, ignore_errors=True)
+
+
 if __name__ == "__main__":
     try:
-        main()
+        if sys.argv[1:2] == ["--only"]:
+            main_only(sys.argv[2:])
+        else:
+            main()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         sys.exit(1)

@@ -14,6 +14,8 @@ Writes ``{idx:06d}.png`` (``--save_images``, the reenacted frame at the
 generator's resolution), ``grids/{idx:06d}.png`` (``--save_grid``,
 [source | target crop | reenacted] rows) and ``generated_video.mp4``
 (``--save_video``; written with OpenCV, ``native/imgproc.py``).
+``--n_devices N`` splits every batch of target frames over cards 0..N-1
+(N slots of the CPU with ``--device cpu``).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 from ..geometry import initialize_directions
 from ..models.face.cropping import crop_using_landmarks_batch
 from ..native.imgproc import extract_frames, from_gan_range, generate_video
+from ..parallel.mesh import make_mesh
 from ..pipeline import (CROP_SIZE, make_fused_reenact_fn, make_prep_fn, make_reenact_fn,
                         pad_batch, setup_source, to_gan_range)
 from ..pipeline.preprocess import DETECT_WIDTH, resize_width
@@ -77,7 +80,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "(decalib/datasets/detectors.py:23-42, datasets.py:57-86); "
                         "'fan_frame' = FAN on the whole 256 crop; 'resize' = bilinear")
     p.add_argument("--n_devices", type=int, default=None,
-                   help="cards to split target batches over (only 1 is ported)")
+                   help="cards to split each target batch over (frame data parallelism in "
+                        "one process, parallel/mesh.py); must divide --frame_batch")
     p.add_argument("--skip_preprocess", action="store_true",
                    help="inputs are FFHQ-cropped faces already: no detection or "
                         "landmark crop, a bilinear resize to 256")
@@ -260,13 +264,19 @@ def main(argv=None):
     fallback; with a video, the seconds its write took after the loop
     (``video_s``)."""
     args = build_parser().parse_args(argv)
-    if (args.n_devices or 1) > 1:
-        raise NotImplementedError("frame data parallelism over several cards is not "
-                                  "ported yet: --n_devices must be 1")
     if args.reuse_landmarks and (args.skip_preprocess or args.deca_alignment == "resize"):
         raise ValueError("--reuse_landmarks needs the detection prep and a bbox-based "
                          "--deca_alignment (fan/fan_frame)")
     dev = resolve_device(None if args.device == "cuda" else args.device)
+    # frame data parallelism (parallel/mesh.py), checked before any work:
+    # divisibility against the user's --frame_batch first, so that the error
+    # names the value they set; the 1024 guard below keeps it divisible
+    n_dev = args.n_devices or 1
+    mesh = None
+    if n_dev > 1:
+        if args.frame_batch % n_dev:
+            raise ValueError("--n_devices must divide --frame_batch")
+        mesh = make_mesh(n_dev, device=dev if dev.type == "cpu" else None)
     if args.save_video:
         import cv2  # noqa: F401  (the video writer; fail before any work)
     os.makedirs(args.output_path, exist_ok=True)
@@ -308,7 +318,7 @@ def main(argv=None):
     # --- targets, batched -------------------------------------------------
     frames = _load_target_frames(args.target_path, args.video_stride)
     print(f"Run reenactment for {len(frames)} frames")
-    fb = effective_frame_batch(args.frame_batch, g.size)
+    fb = effective_frame_batch(args.frame_batch, g.size, n_dev)
     if fb != args.frame_batch:
         print(f"frame_batch {args.frame_batch} at generator size {g.size}: padding "
               f"batches to {fb}")
@@ -331,7 +341,7 @@ def main(argv=None):
             g_src, a, deca, spec, sfd, fan, truncation=0.7, truncation_latent=trunc,
             fan_params=fan_deca, s3fd_params=sfd_deca, reuse_landmarks=args.reuse_landmarks,
             compute_dtype=compute_dtype, output_u8=True,
-            outputs="full" if need_crops else "reenact", device=dev)
+            outputs="full" if need_crops else "reenact", mesh=mesh, device=dev)
 
         def make_fallback():
             # the host crop (pad, blur and fade where the box leaves the
@@ -339,7 +349,7 @@ def main(argv=None):
             reenact_host = make_reenact_fn(
                 g_src, a, deca, spec, truncation=0.7, truncation_latent=trunc,
                 fan_params=fan_deca, s3fd_params=sfd_deca, compute_dtype=compute_dtype,
-                device=dev)
+                mesh=mesh, device=dev)
 
             def fallback(frames_list, lms):
                 crops, cok = crop_using_landmarks_batch(frames_list, list(lms),
@@ -357,7 +367,7 @@ def main(argv=None):
         frames_out = _run_targets_unfused(args, frames, prep, g_src, a, deca, spec, trunc,
                                           fan_deca, sfd_deca, compute_dtype, source_img,
                                           source_code, params_source, angles_source, dev,
-                                          stats)
+                                          stats, mesh)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     stats["target_s"] = time.perf_counter() - t0
@@ -371,7 +381,7 @@ def main(argv=None):
 
 def _run_targets_unfused(args, frames, prep, g_src, a, deca, spec, trunc, fan_deca, sfd_deca,
                          compute_dtype, source_img, source_code, params_source, angles_source,
-                         dev, stats):
+                         dev, stats, mesh=None):
     """The unfused target loop: ``prep`` (detect, host or device crop) of
     chunk i+1 runs on a thread while chunk i is reenacted. Returns the
     frames for the video; ``stats`` gains the host seconds spent waiting
@@ -380,7 +390,7 @@ def _run_targets_unfused(args, frames, prep, g_src, a, deca, spec, trunc, fan_de
     reenact = make_reenact_fn(g_src, a, deca, spec, truncation=0.7, truncation_latent=trunc,
                               fan_params=fan_deca, s3fd_params=sfd_deca,
                               compute_dtype=compute_dtype,
-                              reuse_landmarks=args.reuse_landmarks, device=dev)
+                              reuse_landmarks=args.reuse_landmarks, mesh=mesh, device=dev)
     need_grid = args.save_grid or (args.save_video and args.video_content == "grid")
     bi = args.frame_batch
     chunks = [frames[s:s + bi] for s in range(0, len(frames), bi)]

@@ -9,15 +9,26 @@ Usage:
 The flags are the JAX package's (the reference's ``run_trainer.py:67-99``),
 plus ``--device``: the CUDA card by default (it raises without one), or the
 CPU. The experiment directory gets the ``_{dataset}_{method}`` suffix of
-``run_trainer.py:105``. One card: ``--n_devices`` > 1 and ``--dcn_slices``
-> 1 raise. A batch is never split into microbatches unless
+``run_trainer.py:105``. A batch is never split into microbatches unless
 ``--grad_accum`` asks for it.
+
+Several cards (data parallelism, ``parallel/mesh.py``):
+  * ``--n_devices N`` spawns N ranks on this host, one card each, joined
+    with NCCL (gloo with ``--device cpu``: N CPU processes);
+  * under torchrun (its ``WORLD_SIZE`` ... set) the world is torchrun's,
+    across hosts with ``--dcn_slices`` (one row of ranks a host):
+    ``torchrun --nnodes H --nproc_per_node C ... -m
+    stylegan_directions_face_reenactment_tpu_torch.cli.run_trainer
+    --dcn_slices H``.
+``--batch_size`` is the global batch; each rank takes its rows.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
+from ..parallel.mesh import distributed_init, launch, make_hybrid_mesh, make_mesh
 from ..utils.device import resolve_device
 
 
@@ -64,22 +75,47 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no_evaluation", action="store_true",
                    help="no evaluation cadence (runs without a validation set)")
     p.add_argument("--n_devices", type=int, default=None,
-                   help="cards to train over (only 1 is ported)")
+                   help="data parallelism over this many cards of this host: one "
+                        "spawned rank a card (NCCL); default one card")
     p.add_argument("--dcn_slices", type=int, default=1,
-                   help="hosts of a multi-host run (only 1 is ported)")
+                   help="hosts of a multi-host run started by torchrun (one row of "
+                        "ranks a host, parallel/mesh.py::make_hybrid_mesh); the "
+                        "world comes from torchrun's environment")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the nets run: the CUDA card (it raises without one) "
                         "or the CPU")
     return p
 
 
+def _rank_main(argv):
+    """A spawned rank's run: rank 0 returns its A on the CPU."""
+    _, a = main(argv)
+    return a.cpu() if int(os.environ["RANK"]) == 0 else None
+
+
 def main(argv=None):
-    """Run the CLI; returns the Trainer and the trained A."""
+    """Run the CLI; returns the Trainer and the trained A. With
+    ``--n_devices`` > 1 outside torchrun it spawns the ranks and returns
+    (None, rank 0's A on the CPU)."""
+    argv = list(argv) if argv is not None else None
     args_ns = build_parser().parse_args(argv)
-    if (args_ns.n_devices or 1) > 1 or args_ns.dcn_slices > 1:
-        raise NotImplementedError("data-parallel training over several cards is not "
-                                  "ported yet (ROADMAP): --n_devices and --dcn_slices "
-                                  "must be 1")
+    on_cpu = args_ns.device == "cpu"
+    n_dev = args_ns.n_devices or 1
+    if args_ns.dcn_slices > 1 or os.environ.get("WORLD_SIZE"):
+        if not distributed_init(device=args_ns.device if on_cpu else None):
+            raise ValueError("--dcn_slices > 1 trains across hosts: start every host's "
+                             "ranks with torchrun (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, "
+                             "RANK, LOCAL_RANK)")
+        # the world's checks: dcn_slices divides it, n_devices names all of it
+        make_hybrid_mesh(args_ns.n_devices, dcn_slices=args_ns.dcn_slices,
+                         device=args_ns.device if on_cpu else None)
+    elif n_dev > 1:
+        if args_ns.batch_size % n_dev:
+            raise ValueError(f"batch_size {args_ns.batch_size} must divide the mesh "
+                             f"({n_dev} devices) for data-parallel training")
+        make_mesh(n_dev, device=args_ns.device if on_cpu else None)   # enough cards?
+        ranks = launch(_rank_main, n_dev, argv, backend="gloo" if on_cpu else "nccl")
+        return None, ranks[0]
     dev = resolve_device(None if args_ns.device == "cuda" else args_ns.device)
 
     from ..configs.arguments import TrainingArguments

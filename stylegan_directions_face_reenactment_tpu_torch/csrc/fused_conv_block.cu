@@ -676,14 +676,22 @@ int launch_gemm(const Gemm<float>& g, dim3 grid, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+constexpr int kMaxDevices = 64;
+
 template <int BN>
 int launch_wgmma(const Gemm<bf16>& g, dim3 grid, cudaStream_t st) {
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
+  // the shared-memory attribute belongs to each device's context: set it
+  // once a card
+  static bool attr_set[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!attr_set[dev]) {
+    e = cudaFuncSetAttribute(
         fcb_stage_wgmma<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, WgTile<BN>::kSmem);
     if (e != cudaSuccess) return (int)e;
-    attr_set = true;
+    attr_set[dev] = true;
   }
   fcb_stage_wgmma<BN><<<grid, kWgThreads, WgTile<BN>::kSmem, st>>>(g);
   return (int)cudaGetLastError();

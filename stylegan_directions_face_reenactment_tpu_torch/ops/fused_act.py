@@ -40,7 +40,7 @@ import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
-from .kernel_build import check, load_library
+from .kernel_build import check, load_library, on_card_of
 
 DEFAULT_SLOPE = 0.2
 DEFAULT_SCALE = math.sqrt(2.0)
@@ -85,9 +85,10 @@ def fused_bias_act_cuda(x: torch.Tensor, bias: Optional[torch.Tensor] = None,
         b_ptr = bias.data_ptr()
     y = torch.empty_like(x)
     fn = getattr(load_library(), _ENTRY[x.dtype])
-    status = fn(x.data_ptr(), b_ptr, y.data_ptr(), x.numel(), c, inner,
-                float(negative_slope), float(scale),
-                torch.cuda.current_stream(x.device).cuda_stream)
+    with on_card_of(x):
+        status = fn(x.data_ptr(), b_ptr, y.data_ptr(), x.numel(), c, inner,
+                    float(negative_slope), float(scale),
+                    torch.cuda.current_stream(x.device).cuda_stream)
     check(status, "fused_bias_act_cuda")
     fused_bias_act_cuda.launches += 1
     return y
@@ -136,8 +137,9 @@ def fused_bias_act_bwd_cuda(g: torch.Tensor, y: torch.Tensor,
     pos, neg = _gains(negative_slope, scale)
     dx = torch.empty_like(g)
     fn = getattr(load_library(), _BWD_ENTRY[g.dtype])
-    status = fn(g.data_ptr(), y.data_ptr(), dx.data_ptr(), g.numel(), pos, neg,
-                torch.cuda.current_stream(g.device).cuda_stream)
+    with on_card_of(g):
+        status = fn(g.data_ptr(), y.data_ptr(), dx.data_ptr(), g.numel(), pos, neg,
+                    torch.cuda.current_stream(g.device).cuda_stream)
     check(status, "fused_bias_act_bwd_cuda")
     fused_bias_act_bwd_cuda.launches += 1
     return dx

@@ -57,7 +57,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from .kernel_build import check, load_library
+from .kernel_build import check, load_library, on_card_of
 
 CHANNELS = 256
 _ENTRY = {torch.float32: "fused_conv_block_f32", torch.bfloat16: "fused_conv_block_bf16"}
@@ -298,8 +298,10 @@ def fused_conv_block_cuda(x: torch.Tensor, args: K3Args, keep: bool = True) -> t
     act_b, ws, total = run.layout
     scratch = torch.empty(total, dtype=torch.uint8, device=x.device)
     base = scratch.data_ptr()
-    status = run.fn(x.data_ptr(), *run.ptrs, out.data_ptr(), base, base + act_b, base + ws,
-                    b, h, w, *run.kchunk, torch._C._cuda_getCurrentRawStream(x.device.index))
+    with on_card_of(x):
+        status = run.fn(x.data_ptr(), *run.ptrs, out.data_ptr(), base, base + act_b,
+                        base + ws, b, h, w, *run.kchunk,
+                        torch._C._cuda_getCurrentRawStream(x.device.index))
     check(status, "fused_conv_block_cuda")
     fused_conv_block_cuda.launches += 1
     return out

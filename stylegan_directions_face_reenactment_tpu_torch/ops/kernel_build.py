@@ -11,6 +11,7 @@ Nothing is built when this module is imported: the first kernel launch, or
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -142,6 +143,16 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     return lib
+
+
+def on_card_of(x):
+    """The device guard of a launch on ``x``: the C entry points launch on
+    the current device, so a tensor on another card switches to that card
+    for the call (the mesh's parts and each rank already run there)."""
+    import torch
+    if x.device.index is None or x.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(x.device)
 
 
 def check(status: int, what: str) -> None:

@@ -43,7 +43,7 @@ import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
-from .kernel_build import check, load_library
+from .kernel_build import check, load_library, on_card_of
 from .upfirdn2d import normalize_pad, upfirdn2d as upfirdn2d_plain, upfirdn2d_output_shape
 
 MAX_TAPS = 4
@@ -192,10 +192,11 @@ def _run(x: torch.Tensor, plan: K1Plan, what: str) -> torch.Tensor:
     if not x.is_contiguous():
         raise ValueError(f"{what} takes a contiguous NCHW tensor")
     y = torch.empty(plan.out_shape, dtype=x.dtype, device=x.device)
-    check(load_library().upfirdn2d_run(ctypes.byref(plan.params), x.data_ptr(),
-                                       y.data_ptr(),
-                                       torch._C._cuda_getCurrentRawStream(plan.device_index)),
-          what)
+    with on_card_of(x):
+        check(load_library().upfirdn2d_run(ctypes.byref(plan.params), x.data_ptr(),
+                                           y.data_ptr(),
+                                           torch._C._cuda_getCurrentRawStream(plan.device_index)),
+              what)
     return y
 
 

@@ -11,8 +11,12 @@ resize (none of them). :func:`reenact_raw_batch` adds the preprocessing
 
 ``fan_params`` / ``s3fd_params`` / ``sfd_prep`` / ``fan_prep`` are the
 port's :class:`FAN` / :class:`S3FD` modules (the JAX package's parameter
-pytrees under the same names). Frame data parallelism over several cards
-(``mesh``) is not ported yet and raises.
+pytrees under the same names). ``mesh=`` (``parallel/mesh.py``) is frame
+data parallelism in one process: the frozen nets are copied once to each
+of the mesh's devices, every frame batch is split over them on axis 0
+(it must divide the mesh), the parts run one after another with no
+synchronize between them, and the outputs are gathered in frame order on
+the mesh's first device.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from ..models.face.cropping import landmarks_in_crop
 from ..models.face.fan import FAN
 from ..models.face.s3fd import S3FD
 from ..models.stylegan2 import Generator
+from ..parallel.mesh import Mesh, data_parallel
 from ..utils.device import DeviceLike, resolve_device
 from .alignment import landmark_align, make_fan_align
 from .preprocess import preprocess_batch_device
@@ -170,16 +175,26 @@ def reenact_raw_batch(g: Generator, a: DirectionMatrix, deca: DECA,
     return reenacted, latents, crops_u8, ok, in_frame, pts
 
 
-def _prepare(modules, device: DeviceLike, truncation_latent, mesh):
-    if mesh is not None:
-        raise NotImplementedError("frame data parallelism over several cards "
-                                  "is not ported yet")
-    dev = resolve_device(device)
+def _prepare(modules, device: DeviceLike, truncation_latent, mesh: Optional[Mesh]):
+    """(the device the calls run on: the mesh's first device, or
+    ``device``; the truncation latent there). The modules are moved there
+    in eval mode."""
+    dev = mesh.devices[0] if mesh is not None else resolve_device(device)
     for m in modules:
         if m is not None:
             m.to(dev).eval()
     trunc = None if truncation_latent is None else torch.as_tensor(truncation_latent).to(dev)
     return dev, trunc
+
+
+def _over_mesh(body, mesh: Optional[Mesh], nets, n_batch: int):
+    """``body(*batch, *nets, *rest)`` as it is, or split over the mesh: its
+    first ``n_batch`` arguments are the frame batch, ``nets`` are copied to
+    every device now."""
+    if mesh is None:
+        return body
+    return data_parallel(body, mesh, batch_argnums=tuple(range(n_batch)),
+                         replicated=[m for m in nets if isinstance(m, torch.nn.Module)])
 
 
 def make_fused_reenact_fn(g: Generator, a: DirectionMatrix, deca: DECA,
@@ -202,22 +217,28 @@ def make_fused_reenact_fn(g: Generator, a: DirectionMatrix, deca: DECA,
     tensors (uint8 frames stay uint8 until they are on the device)."""
     if outputs not in OUTPUTS:
         raise ValueError(f"outputs must be one of {OUTPUTS}, got {outputs!r}")
-    dev, trunc = _prepare((g, a, deca, sfd_prep, fan_prep, fan_params, s3fd_params),
-                          device, truncation_latent, mesh)
+    nets = (g, a, deca, sfd_prep, fan_prep, fan_params, s3fd_params)
+    dev, trunc = _prepare(nets, device, truncation_latent, mesh)
+
+    def body(raw_frames, g, a, deca, sfd_prep, fan_prep, fan_params, s3fd_params, trunc,
+             source_code, params_source, angles_source):
+        return reenact_raw_batch(
+            g, a, deca, spec, sfd_prep, fan_prep, source_code, params_source, angles_source,
+            raw_frames, crop_size=crop_size, truncation=truncation, truncation_latent=trunc,
+            num_layers_shift=num_layers_shift, compute_dtype=compute_dtype,
+            fan_params=fan_params, s3fd_params=s3fd_params, reuse_landmarks=reuse_landmarks,
+            output_u8=output_u8, outputs=outputs)
+
+    run = _over_mesh(body, mesh, nets, 1)
 
     def to_dev(x):
         return torch.as_tensor(x, dtype=torch.float32, device=dev)
 
     def fn(source_code, params_source, angles_source, raw_frames):
         with torch.inference_mode():
-            return reenact_raw_batch(
-                g, a, deca, spec, sfd_prep, fan_prep, to_dev(source_code),
-                {k: to_dev(v) for k, v in params_source.items()}, to_dev(angles_source),
-                torch.as_tensor(raw_frames, device=dev), crop_size=crop_size,
-                truncation=truncation, truncation_latent=trunc,
-                num_layers_shift=num_layers_shift, compute_dtype=compute_dtype,
-                fan_params=fan_params, s3fd_params=s3fd_params,
-                reuse_landmarks=reuse_landmarks, output_u8=output_u8, outputs=outputs)
+            return run(torch.as_tensor(raw_frames, device=dev), *nets, trunc,
+                       to_dev(source_code), {k: to_dev(v) for k, v in params_source.items()},
+                       to_dev(angles_source))
 
     return fn
 
@@ -241,8 +262,18 @@ def make_reenact_fn(g: Generator, a: DirectionMatrix, deca: DECA,
     modules are moved onto ``device``; inputs may be numpy arrays or
     tensors, and outputs are tensors there.
     """
-    dev, trunc = _prepare((g, a, deca, fan_params, s3fd_params), device,
-                          truncation_latent, mesh)
+    nets = (g, a, deca, fan_params, s3fd_params)
+    dev, trunc = _prepare(nets, device, truncation_latent, mesh)
+
+    def body(target_imgs, lms, ok, g, a, deca, fan_params, s3fd_params, trunc, source_code,
+             params_source, angles_source):
+        return reenact_batch(
+            g, a, deca, spec, source_code, params_source, angles_source, target_imgs,
+            truncation=truncation, truncation_latent=trunc, num_layers_shift=num_layers_shift,
+            compute_dtype=compute_dtype, fan_params=fan_params, s3fd_params=s3fd_params,
+            return_target_params=return_target_params, target_lms=lms, target_ok=ok)
+
+    run = _over_mesh(body, mesh, nets, 3)
 
     def to_dev(x, dtype=torch.float32):
         return torch.as_tensor(x, dtype=dtype, device=dev)
@@ -255,14 +286,8 @@ def make_reenact_fn(g: Generator, a: DirectionMatrix, deca: DECA,
         if reuse_landmarks:
             lms, ok = to_dev(extra[0]), to_dev(extra[1], torch.bool)
         with torch.inference_mode():
-            return reenact_batch(
-                g, a, deca, spec, to_dev(source_code),
-                {k: to_dev(v) for k, v in params_source.items()},
-                to_dev(angles_source), to_dev(target_imgs),
-                truncation=truncation, truncation_latent=trunc,
-                num_layers_shift=num_layers_shift, compute_dtype=compute_dtype,
-                fan_params=fan_params, s3fd_params=s3fd_params,
-                return_target_params=return_target_params,
-                target_lms=lms, target_ok=ok)
+            return run(to_dev(target_imgs), lms, ok, *nets, trunc, to_dev(source_code),
+                       {k: to_dev(v) for k, v in params_source.items()},
+                       to_dev(angles_source))
 
     return fn

@@ -13,6 +13,15 @@ Every step takes its randomness from one sampler, :func:`sample_draws`,
 whose :class:`Draws` the step's body is a function of: ``step(a, gen,
 *extra)`` draws from the ``torch.Generator`` ``gen``, and ``step(a, None,
 *extra, draws=d)`` runs on given draws.
+
+Data parallelism (the JAX package's mesh, here a process world of
+``torch.distributed``, ``parallel/mesh.py``): ``args.batch_size`` is the
+global batch. Every rank draws the global batch's draws from the same
+generator and keeps its rows (:func:`batch_halves` says which), takes its
+rows of the inputs from the Trainer, and the optimizer step averages A's
+gradient (one all-reduce) and the loss terms over the world, so a world of
+P makes one card's update and logs one card's terms. An accumulated step
+reduces once, after its last microbatch.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ from ..models.face.fan import FAN
 from ..models.face.s3fd import S3FD
 from ..models.irse import Backbone
 from ..models.stylegan2 import Generator, mapping
+from ..parallel.mesh import average_over_world, shard_batch, world_info
 from ..pipeline.synthesis import generate_image
 from .losses_stack import calculate_losses, calculate_losses_paired
 
@@ -77,12 +87,27 @@ class Draws(NamedTuple):
     u: Optional[torch.Tensor] = None
 
 
+def batch_halves(args: TrainingArguments, method: str) -> bool:
+    """Whether a step's batch is two halves treated differently: the
+    disentanglement-50 halves of the unpaired methods, and real_synthetic's
+    real and synthetic halves. A rank's rows of such a batch are its block
+    of each half (``parallel/mesh.py::rank_rows`` with two groups), else
+    its block."""
+    return method != "paired" and (args.disentanglement_50 or method == "real_synthetic")
+
+
 def sample_draws(gen: torch.Generator, args: TrainingArguments, spec: DirectionsSpec,
-                 device, *, source: bool, target: bool, syn: int = 0) -> Draws:
+                 device, *, source: bool, target: bool, syn: int = 0,
+                 halves: Optional[bool] = None) -> Draws:
     """Draw, in this order, z_src (B, dim_z) when ``source``, z_tgt when
     ``target``, z_syn (``syn``, dim_z), and with disentanglement-50 the
-    (B/2,) direction indices and positions, from ``gen`` on its device."""
+    (B/2,) direction indices and positions, from ``gen`` on its device. In
+    a world of several ranks every rank draws the same and keeps its rows:
+    of z_src and z_tgt its block of each half when ``halves`` (default: with
+    disentanglement-50), else its block; its block of z_syn and of the
+    second half's picks."""
     b = args.batch_size
+    halves = args.disentanglement_50 if halves is None else halves
 
     def z(n):
         return torch.randn((n, args.dim_z), generator=gen, device=gen.device).to(device)
@@ -94,6 +119,12 @@ def sample_draws(gen: torch.Generator, args: TrainingArguments, spec: Directions
             raise ValueError("batch size must be even for disentanglement_50")
         idx, u = draw_disentanglement_50(spec, b // 2, gen, device)
         d = d._replace(target_indices=idx, u=u)
+    if world_info()[1] > 1:
+        parts = 2 if halves else 1
+        d = Draws(z_src=shard_batch(d.z_src, groups=parts),
+                  z_tgt=shard_batch(d.z_tgt, groups=parts),
+                  z_syn=shard_batch(d.z_syn), target_indices=shard_batch(d.target_indices),
+                  u=shard_batch(d.u))
     return d
 
 
@@ -163,11 +194,27 @@ def _detached(loss_dict):
             for k, v in loss_dict.items()}
 
 
+def _update(a: DirectionMatrix, optimizer, loss_dict):
+    """Average A's gradient (in ``.grad``) and the loss terms over the
+    world, add the gradient's global L2 norm (the reference's
+    ``wandb.watch``) to the terms, and make one optimizer update."""
+    names = _grad_names(a)
+    keys = list(loss_dict)
+    terms = torch.stack([loss_dict[k].detach().float().reshape(()) for k in keys])
+    average_over_world([p.grad for _, p in names] + [terms])
+    loss_dict = dict(zip(keys, terms.unbind()))
+    loss_dict["grad_norm"] = torch.linalg.vector_norm(
+        torch.stack([torch.linalg.vector_norm(p.grad) for _, p in names]))
+    optimizer.step()
+    return loss_dict
+
+
 def _finish(loss_fn, sampler, optimizer, grads_only: bool):
     """The step around ``loss_fn(a, draws, *extra) -> (total, terms)``:
-    with ``grads_only`` it returns (terms, {"weight", "bias"} gradients),
-    else it makes one optimizer update of A and returns the terms with the
-    gradient's global L2 norm (the reference's ``wandb.watch``)."""
+    with ``grads_only`` it returns (terms, {"weight", "bias"} gradients) of
+    this rank's rows, else it makes one optimizer update of A from the
+    world's mean gradient and returns the world's mean terms with the
+    gradient's global L2 norm."""
     if not grads_only and optimizer is None:
         raise ValueError("a training step needs its optimizer (make_optimizer)")
 
@@ -182,10 +229,7 @@ def _finish(loss_fn, sampler, optimizer, grads_only: bool):
             return _detached(loss_dict), {n: g for (n, _), g in zip(names, grads)}
         optimizer.zero_grad(set_to_none=True)
         total.backward()
-        loss_dict["grad_norm"] = torch.linalg.vector_norm(
-            torch.stack([torch.linalg.vector_norm(p.grad) for _, p in names]))
-        optimizer.step()
-        return _detached(loss_dict)
+        return _update(a, optimizer, _detached(loss_dict))
 
     return step
 
@@ -295,7 +339,8 @@ def make_real_step(models: FrozenModels, spec: DirectionsSpec, args: TrainingArg
 
     def sampler(gen):
         return sample_draws(gen, args, spec, models.device, source=False, target=True,
-                            syn=half if synthetic_half else 0)
+                            syn=half if synthetic_half else 0,
+                            halves=args.disentanglement_50 or synthetic_half)
 
     return _finish(loss_fn, sampler, optimizer, grads_only)
 
@@ -346,7 +391,8 @@ def make_paired_step(models: FrozenModels, spec: DirectionsSpec, args: TrainingA
 def _check_microbatches(builder, args: TrainingArguments, n_micro: int, builder_kw) -> int:
     """The microbatch size, after checking that every array of a step's
     inputs splits into ``n_micro`` equal parts that are whole batches of
-    the microbatch's step."""
+    the microbatch's step, and that each microbatch (each of its halves,
+    where it has two) splits over the world's ranks."""
     if args.batch_size % n_micro:
         raise ValueError(f"grad_accum {n_micro} must divide batch_size {args.batch_size}")
     mb = args.batch_size // n_micro
@@ -358,6 +404,16 @@ def _check_microbatches(builder, args: TrainingArguments, n_micro: int, builder_
     if args.disentanglement_50 and builder is not make_paired_step and mb % 2:
         raise ValueError(f"the microbatch {mb} (batch_size / grad_accum) must be even "
                          "for disentanglement_50")
+    world = world_info()[1]
+    if mb % world:
+        raise ValueError(f"microbatch {mb} (batch_size/grad_accum) must divide the "
+                         f"{world}-device mesh for data-parallel training")
+    method = ("paired" if builder is make_paired_step else
+              "real_synthetic" if builder_kw.get("synthetic_half") else "synthetic")
+    if world > 1 and batch_halves(args, method) and (mb // 2) % world:
+        raise ValueError(f"each half of the microbatch {mb} (batch_size/grad_accum) must "
+                         f"divide the {world}-device mesh for data-parallel training: a "
+                         "rank takes its rows of each half")
     return mb
 
 
@@ -371,13 +427,15 @@ def make_accum_step(builder: Callable, models: FrozenModels, spec: DirectionsSpe
     ONE optimizer update; every loss of the stack is a batch mean, so the
     update is the whole batch's. The microbatches draw one after another
     from the step's generator. The sizes are checked here, when the step is
-    built."""
-    n_micro = int(n_micro if n_micro is not None else args.grad_accum or 1)
-    if n_micro <= 1:
+    built. In a world of several ranks each microbatch is split over the
+    ranks, and the mean gradient is reduced over the world once, after the
+    last microbatch (the ``no_sync`` of DDP)."""
+    n_micro = max(1, int(n_micro if n_micro is not None else args.grad_accum or 1))
+    mb = _check_microbatches(builder, args, n_micro, builder_kw)
+    if n_micro == 1:
         return builder(models, spec, args, optimizer, **builder_kw)
     if optimizer is None:
         raise ValueError("an accumulated step needs its optimizer (make_optimizer)")
-    mb = _check_microbatches(builder, args, n_micro, builder_kw)
     mb_args = dataclasses.replace(args, batch_size=mb, grad_accum=1)
     grad_step = builder(models, spec, mb_args, None, grads_only=True, **builder_kw)
 
@@ -393,15 +451,10 @@ def make_accum_step(builder: Callable, models: FrozenModels, spec: DirectionsSpe
             ld, g = grad_step(a, gen, *(part(x, i) for x in extra))
             gsum = g if gsum is None else {k: gsum[k] + g[k] for k in g}
             lsum = ld if lsum is None else {k: lsum[k] + ld[k] for k in ld}
-        names = _grad_names(a)
         optimizer.zero_grad(set_to_none=True)
-        for n, p in names:
+        for n, p in _grad_names(a):
             p.grad = gsum[n] / n_micro
-        loss_dict = {k: v / n_micro for k, v in lsum.items()}
-        loss_dict["grad_norm"] = torch.linalg.vector_norm(
-            torch.stack([torch.linalg.vector_norm(p.grad) for _, p in names]))
-        optimizer.step()
-        return loss_dict
+        return _update(a, optimizer, {k: v / n_micro for k, v in lsum.items()})
 
     return step
 

@@ -7,7 +7,13 @@ losses every ``steps_per_log`` steps (``logs/train_log.jsonl``, and wandb
 where it can be imported), evaluates every ``steps_per_ev_log`` steps, saves
 A every ``steps_per_save`` steps, and resamples the paired dataset's pairs
 every epoch (``trainer.py:398-404``). The steps (``train/steps.py``) do the
-device work; this class moves host data and keeps the books. One card.
+device work; this class moves host data and keeps the books.
+
+In a world of several ranks (``parallel/mesh.py::distributed_init``; one
+card a rank) every rank runs the same loop on the same data: it keeps its
+rows of each batch (``_local``) and the steps average A's gradient over the
+world, so every rank holds the same A. Logs, checkpoints, the evaluation's
+files, wandb and the GIF come from rank 0 only.
 """
 
 from __future__ import annotations
@@ -25,16 +31,18 @@ from ..data.datasets import (CustomDataset, CustomDatasetPaired,
                              CustomDatasetTestsetSynthetic, Loader)
 from ..geometry.directions import DirectionsSpec, initialize_directions, make_shift_vector
 from ..models.direction_matrix import DirectionMatrix, direction_matrix_forward
+from ..parallel.mesh import average_over_world, rank_rows, replicate, world_info
 from ..pipeline.synthesis import generate_image
 from ..weights import init_direction_matrix, save_a_matrix
 from .checkpoints import start_from_checkpoint
 from .eval import extract_evaluation_metrics
-from .steps import (FrozenModels, make_accum_step, make_optimizer, make_paired_step,
-                    make_real_step, make_shape_program, make_synthetic_step)
+from .steps import (FrozenModels, batch_halves, make_accum_step, make_optimizer,
+                    make_paired_step, make_real_step, make_shape_program, make_synthetic_step)
 
 
 class Trainer:
-    """Trains the direction matrix A on the models' device."""
+    """Trains the direction matrix A on the models' device, over the world
+    of ranks when there is one (the batch must divide it)."""
 
     def __init__(self, args: TrainingArguments, models: FrozenModels,
                  spec: Optional[DirectionsSpec] = None,
@@ -42,17 +50,22 @@ class Trainer:
         self.args = args
         self.spec = spec or initialize_directions(args.dataset_type, args.learned_directions,
                                                   args.shift_scale)
-        self.models = models
+        self.rank, self.world = world_info()
+        if args.batch_size % self.world:
+            raise ValueError(f"batch_size {args.batch_size} must divide the mesh "
+                             f"({self.world} devices) for data-parallel training")
+        self.models = replicate(models)
         self.device = models.device
-        self.log_fn = log_fn
+        self.log_fn = log_fn if self.rank == 0 else (lambda s: None)
         self.output_path = args.experiment_path
         self.models_dir = os.path.join(self.output_path, "models")
         self.images_dir = os.path.join(self.output_path, "images")
         self.logs_dir = os.path.join(self.output_path, "logs")
-        for d in (self.models_dir, self.images_dir, self.logs_dir):
-            os.makedirs(d, exist_ok=True)
-        with open(os.path.join(self.output_path, "arguments.json"), "w") as f:
-            json.dump(dict(vars(args)), f, indent=2, default=str)
+        if self.rank == 0:
+            for d in (self.models_dir, self.images_dir, self.logs_dir):
+                os.makedirs(d, exist_ok=True)
+            with open(os.path.join(self.output_path, "arguments.json"), "w") as f:
+                json.dump(dict(vars(args)), f, indent=2, default=str)
         self.metrics_log: list = []
 
     # ------------------------------------------------------------------
@@ -66,6 +79,8 @@ class Trainer:
         else:
             a = init_direction_matrix(seed, 512, args.learned_directions, w_plus=args.w_plus,
                                       num_layers=args.num_layers_shift, device=self.device)
+        replicate(a)
+        # every rank draws the same from the same seed and keeps its rows
         gen = torch.Generator(device=self.device).manual_seed(seed + 1)
         return start_step, a, make_optimizer(a, args), gen
 
@@ -77,9 +92,28 @@ class Trainer:
     def _batch(self, x) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
 
+    def _local(self, batch: Dict[str, Any], halves: bool = False,
+               micro: bool = True) -> Dict[str, Any]:
+        """This rank's rows of a host batch (its arrays and per-row lists):
+        its block of each microbatch of the step (``grad_accum``; with
+        ``halves``, of each half of each, ``steps.batch_halves``), so that
+        the step's microbatch i on this rank is its block of the one-card
+        microbatch i; the whole batch on every rank where the rows do not
+        divide the world (an evaluation's small remainders)."""
+        if self.world == 1:
+            return batch
+        n = len(next(iter(batch.values())))
+        groups = (max(1, self.args.grad_accum or 1) if micro else 1) * (2 if halves else 1)
+        try:
+            rows = rank_rows(n, self.rank, self.world, groups)
+        except ValueError:
+            return batch
+        return {k: v[rows] if isinstance(v, np.ndarray) else [v[i] for i in rows]
+                for k, v in batch.items()}
+
     def _log(self, step: int, loss_dict: Dict[str, torch.Tensor], mean_loss: float,
              epoch: Optional[int] = None):
-        if step % self.args.steps_per_log:
+        if step % self.args.steps_per_log or self.rank:
             return
         vals = {k: float(v) for k, v in loss_dict.items()}
         head = f"[epoch {epoch:04d}, step {step}]" if epoch is not None else f"[step {step}]"
@@ -103,7 +137,7 @@ class Trainer:
 
     def _after_step(self, a: DirectionMatrix, step: int):
         args = self.args
-        if step % args.steps_per_save == 0 and step > 0:
+        if step % args.steps_per_save == 0 and step > 0 and self.rank == 0:
             save_a_matrix(self.models_dir, a, step, args.learned_directions,
                           args.shift_scale, args.w_plus, args.num_layers_shift)
         # every steps_per_ev_log steps, step 0 included (`utils_train.py:506-510`)
@@ -124,7 +158,13 @@ class Trainer:
     def evaluate(self, a: DirectionMatrix, step: int = 0, num_samples: Optional[int] = None,
                  save_figure: bool = True) -> Dict[str, float]:
         """CSIM, pose error and expression error over the method's test set,
-        with a [source | target | reenacted] grid (``utils_train.py:735-883``)."""
+        with a [source | target | reenacted] grid (``utils_train.py:735-883``).
+        In a world of several ranks the batches are sharded: each rank
+        measures its rows, and each batch's three means are averaged over
+        the world (one all-reduce a batch; a remainder that does not divide
+        the world runs whole on every rank), so every rank returns one
+        card's metrics. The grid shows rank 0's first rows; rank 0 writes
+        the files."""
         from ..utils.image_utils import generate_grid_image, save_u8
         args, models, spec = self.args, self.models, self.spec
         num_samples = num_samples or args.validation_samples
@@ -149,6 +189,7 @@ class Trainer:
         csims, poses, exps, fig = [], [], [], None
         with torch.no_grad():
             for batch in loader:
+                batch = self._local(batch, micro=False)
                 if method == "paired":
                     # real frames of one video; metrics against the real target
                     # (evaluate_model_reenactment_video)
@@ -164,8 +205,8 @@ class Trainer:
                 sv = make_shift_vector(spec, p_src, p_tgt, ang_src, ang_tgt)
                 ren = synth(source_w, direction_matrix_forward(a, sv))
                 p_ren, ang_ren = shapemodel(ren)
-                csim, pe, ee = extract_evaluation_metrics(spec, models.id_backbone, p_ren,
-                                                          p_tgt, ang_ren, ang_tgt, ren, src)
+                csim, pe, ee = average_over_world(list(extract_evaluation_metrics(
+                    spec, models.id_backbone, p_ren, p_tgt, ang_ren, ang_tgt, ren, src)))
                 csims.append(float(csim))
                 poses.append(float(pe))
                 exps.append(float(ee))
@@ -175,10 +216,12 @@ class Trainer:
         metrics = {"csim": float(np.mean(csims)) if csims else float("nan"),
                    "pose_error": float(np.mean(poses)) if poses else float("nan"),
                    "expression_error": float(np.mean(exps)) if exps else float("nan")}
+        self.metrics_log.append({"step": step, **metrics})
+        if self.rank:
+            return metrics
         if fig is not None:
             save_u8(fig, os.path.join(self.images_dir, f"{step:04d}_reenactment.png"))
         gif_frames = self._gif(a, step) if args.gif else None
-        self.metrics_log.append({"step": step, **metrics})
         with open(os.path.join(self.logs_dir, "eval_metrics.json"), "w") as f:
             json.dump(self.metrics_log, f, indent=2)
         self._wandb_eval(step, metrics, fig, gif_frames)
@@ -251,6 +294,8 @@ class Trainer:
         step, losses = start_step, []
         for epoch in range(n_epochs if n_epochs is not None else args.n_steps):
             for batch in loader:
+                # real_synthetic's loader gives the real half: its rank block
+                batch = self._local(batch, batch_halves(args, "real") and not synthetic_half)
                 extra = [self._batch(batch["w"]), self._batch(batch["real_img"])]
                 if use_cache:
                     extra += self._gt_shape_for_real_batch(shape_fn, cache, batch)
@@ -307,7 +352,8 @@ class Trainer:
         step_fn = self._make_step(make_paired_step, opt, cached_shape=use_cache)
         shape_fn = make_shape_program(self.models, args) if use_cache else None
         cache: Dict[str, Any] = {}
-        dataset = CustomDatasetPaired(args.train_dataset_path, max_pairs=2,
+        # seeded, so that every rank samples the same pairs
+        dataset = CustomDatasetPaired(args.train_dataset_path, max_pairs=2, seed=seed,
                                       image_size=args.image_resolution)
         n_img, n_ids, n_vid = dataset.get_length()
         self.log_fn(f"Training: {n_img} pairs {n_ids} ids {n_vid} videos")
@@ -316,6 +362,7 @@ class Trainer:
             loader = Loader(dataset, args.batch_size, shuffle=True, drop_last=True,
                             seed=epoch)
             for batch in loader:
+                batch = self._local(batch)
                 if use_cache:
                     extra = (self._batch(batch["source_latent_code"]),
                              self._batch(batch["target_latent_code"]),

@@ -117,6 +117,7 @@ def runs(files, tmp_path_factory):
             j_main(argv + ["--output_path", str(out / "jax")])
             stats = main(argv + ["--output_path", str(out / "port"), "--device", "cpu"])
         done[case] = (out / "jax", out / "port", stats)
+        run.trunc = kept["trunc"]
         return done[case]
 
     return run
@@ -192,13 +193,35 @@ def test_grid_mode_writes_native_frames(runs):
 @pytest.mark.parametrize("flags,error", [
     (["--reuse_landmarks", "--skip_preprocess"], ValueError),
     (["--reuse_landmarks", "--deca_alignment", "resize"], ValueError),
-    (["--n_devices", "2"], NotImplementedError),
+    (["--n_devices", "3"], ValueError),        # does not divide --frame_batch 16
 ])
 def test_refused_flags(files, tmp_path, flags, error):
     with pytest.raises(error):
         main(["--source_path", str(files / "source.png"), "--target_path",
               str(files / "in_frame"), "--output_path", str(tmp_path), "--device", "cpu"]
              + flags)
+
+
+def test_n_devices_splits_the_fused_loop_over_two_slots(files, runs, tmp_path):
+    """``--n_devices 2 --device cpu``: every chunk of 2 frames split over a
+    two-slot CPU mesh, a frame a slot, gathered in order; the same files
+    as the one-device run (which the tests above hold against the JAX
+    package), within 1 intensity unit of its PNGs."""
+    _, port_out, _ = runs("fused_grid")
+    targets, flags = CASES["fused_grid"]
+    out = tmp_path / "mesh"
+    with pytest.MonkeyPatch.context() as mp:
+        point_registries(mp, str(files))
+        mp.setattr(model_loading, "compute_trunc",
+                   lambda g, *args, **kwargs: torch.tensor(runs.trunc))
+        stats = main(["--source_path", str(files / "source.png"), "--target_path",
+                      str(files / targets), *COMMON, *flags, "--n_devices", "2",
+                      "--output_path", str(out), "--device", "cpu"])
+    assert stats["fused"] and stats["frames"] == len(IN_FRAME)
+    names = sorted(p.relative_to(port_out) for p in port_out.rglob("*.png"))
+    assert names == sorted(p.relative_to(out) for p in out.rglob("*.png"))
+    for name in names:
+        assert np.abs(read(out / name) - read(port_out / name)).max() <= 1, name
 
 
 def test_default_device_needs_a_card(files, tmp_path, monkeypatch):

@@ -191,15 +191,27 @@ def test_entry_point_needs_a_card_unless_cpu_is_asked(world, monkeypatch):
         make_reenact_fn(pg, pa, pdeca, spec)
 
 
-@pytest.mark.parametrize("kwargs", [{"mesh": object()}])
-def test_later_slices_raise_not_implemented(world, kwargs):
-    """Frame data parallelism over several cards is not ported yet (the
-    SFD/FAN alignment modes are, and their tests are
-    ``tests/test_torch_reenact_align.py`` and ``test_torch_raw_reenact.py``)."""
+def test_mesh_over_two_cpu_slots_matches_jax(world, jax_f32):
+    """``mesh=``: frame data parallelism over a two-slot CPU mesh, a frame
+    a slot, gathered in order; against the JAX package's slice at this
+    file's limits, and against the one-device entry point (the same
+    limits: a batch of one and of two may sum in other orders)."""
+    from stylegan_directions_face_reenactment_tpu_torch.parallel import make_mesh
     pg, pa, pdeca = world["port"]
     spec = initialize_directions("voxceleb", 15, 6.0)
-    with pytest.raises(NotImplementedError):
-        make_reenact_fn(pg, pa, pdeca, spec, device="cpu", **kwargs)
+    kw = dict(truncation_latent=torch.from_numpy(world["trunc"]), return_target_params=True,
+              device="cpu")
+    args = (world["code"], world["ps"], world["ang"], world["tgts"])
+    img, lat, pt, at = make_reenact_fn(pg, pa, pdeca, spec, mesh=make_mesh(2, device="cpu"),
+                                       **kw)(*args)
+    one = make_reenact_fn(pg, pa, pdeca, spec, **kw)(*args)
+    for want_img, want_lat, want_pt, want_at in (jax_f32, [np.asarray(x) if not isinstance(
+            x, dict) else {k: v.numpy() for k, v in x.items()} for x in one]):
+        for k in want_pt:
+            _close_scaled(pt[k].numpy(), want_pt[k], 1e-3, 1e-3)
+        np.testing.assert_allclose(at.numpy(), np.asarray(want_at), rtol=0, atol=1e-2)
+        _close_scaled(lat.numpy(), want_lat, 1e-4, 1e-4)
+        _close_scaled(img.numpy(), want_img, 1e-3, 2e-4)
 
 
 def test_port_imports_no_jax():

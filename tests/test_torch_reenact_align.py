@@ -109,14 +109,24 @@ def test_make_reenact_fn_alignment_on_cpu(world, mode):
     torch.testing.assert_close(lat, want_lat, rtol=0, atol=0)
 
 
-def test_mesh_still_raises(world):
-    """Frame data parallelism over several cards is not ported yet, on
-    either entry point of this slice."""
+def test_mesh_over_two_cpu_slots(world):
+    """``mesh=`` on the SFD → FAN chain: two CPU slots, a frame each,
+    equal to the one-device call at this file's limits; a frame batch
+    that does not divide the mesh raises, on either entry point."""
+    from stylegan_directions_face_reenactment_tpu_torch.parallel import make_mesh
     g, a, deca, pf, ps = world["port"]
     spec = initialize_directions("voxceleb", 15, 6.0)
-    with pytest.raises(NotImplementedError):
-        make_reenact_fn(g, a, deca, spec, fan_params=pf, s3fd_params=ps, mesh=object(),
-                        device="cpu")
-    with pytest.raises(NotImplementedError):
+    kw = dict(truncation_latent=torch.from_numpy(world["trunc"]), fan_params=pf,
+              s3fd_params=ps, device="cpu")
+    args = (world["code"], world["ps"], world["ang"], world["tgts"])
+    img, lat = make_reenact_fn(g, a, deca, spec, mesh=make_mesh(2, device="cpu"), **kw)(*args)
+    want_img, want_lat = make_reenact_fn(g, a, deca, spec, **kw)(*args)
+    close_scaled(lat, want_lat.numpy(), 1e-4, 1e-4)
+    close_scaled(img, want_img.numpy(), 1e-3, 2e-4)
+    three = make_mesh(3, device="cpu")
+    with pytest.raises(ValueError, match="must divide"):
+        make_reenact_fn(g, a, deca, spec, mesh=three, **kw)(*args)
+    with pytest.raises(ValueError, match="must divide"):
         make_fused_reenact_fn(g, a, deca, spec, ps, pf, fan_params=pf, s3fd_params=ps,
-                              mesh=object(), device="cpu")
+                              mesh=three, device="cpu")(
+            world["code"], world["ps"], world["ang"], np.zeros((2, 64, 64, 3), np.uint8))

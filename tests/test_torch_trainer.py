@@ -239,9 +239,30 @@ def test_run_trainer_main_on_the_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [["--n_devices", "2"], ["--dcn_slices", "2"]])
-def test_run_trainer_refuses_several_cards(flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_trainer.main(["--random_init", "--device", "cpu", *flags])
+def test_run_trainer_over_several_cards(tmp_path, monkeypatch, flags):
+    """``--n_devices 2`` spawns a gloo world of 2 CPU processes for one
+    step of the global batch 4 (a row of each disentanglement-50 half a
+    rank) and returns rank 0's A; rank 0 alone writes the files.
+    ``--dcn_slices 2`` takes its world from torchrun's environment and
+    raises without it."""
+    for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK"):
+        monkeypatch.delenv(var, raising=False)
+    argv = ["--random_init", "--device", "cpu", "--image_resolution", str(SIZE),
+            "--n_steps", "1", "--deca_alignment", "resize", "--no_evaluation",
+            "--experiment_path", str(tmp_path / "run"), *flags]
+    if "--dcn_slices" in flags:
+        with pytest.raises(ValueError, match="torchrun"):
+            run_trainer.main(argv)
+        return
+    with pytest.raises(ValueError, match="must divide the mesh"):
+        run_trainer.main(argv + ["--batch_size", "3"])
+    trainer, a = run_trainer.main(argv + ["--batch_size", "4"])
+    out = tmp_path / "run_voxceleb_synthetic"
+    assert trainer is None and a.linear.weight.device.type == "cpu"
+    assert torch.isfinite(a.linear.weight).all()
+    # A drawn from --seed 0, then one update
+    assert not torch.equal(a.linear.weight, init_direction_matrix(0, device="cpu").linear.weight)
+    assert len((out / "logs" / "train_log.jsonl").read_text().splitlines()) == 1
 
 
 def test_run_trainer_needs_a_card_by_default(monkeypatch):
