@@ -113,17 +113,31 @@ non-zero without printing the last line:
     frames of self-reenactment without PTI, timed, and 4 frames card vs
     CPU.
 
-Phases 10-17 run last, so that the readings of 1-8 keep the conditions
+18. [serve] (the serving bundle, ``serving.py``): slice 2's nets with
+    ``fan`` alignment exported with ``torch.export`` at a frame batch of 16
+    in float32 and bf16 (the graph must call K1/K2/K3 as the operators
+    ``sdfr::*``, 12/13/56 times), saved; a fresh process that must import
+    no ``models`` or ``pipeline`` module loads both bundles and serves
+    requests of 16, 16, 5 and 37 frames (exact launches a chunk), held
+    against the live ``make_reenact_fn``; ``with_generator`` with a
+    PTI-tuned generator; served against live frames/s in turns;
+19. [heads]: the discriminator, the W+ encoder, the pSp heads,
+    ``estimate_landmarks_3d`` with the full depth net and PTI's space
+    regulariser on the card against the CPU, with every K1/K2 call of the
+    discriminator and W+ encoder held against the plain versions.
+
+Phases 10-19 run last, so that the readings of 1-8 keep the conditions
 they were first recorded in.
 
 The last two lines are the kernels' numbers and ``{"ok": true, ...}``.
 ``python3 chip_smoke.py --only ddp mesh stats report`` runs phases 14-17
-alone (``ddp_cards``: [ddp] (a) and (c), for a call with four cards), with
-no last line.
+alone (``ddp_cards``: [ddp] (a) and (c), for a call with four cards), and
+``--only serve heads`` phases 18-19, with no last line.
 """
 
 import copy
 import dataclasses
+import gc
 import json
 import os
 import shutil
@@ -3310,6 +3324,476 @@ def phase_report(smi, targets):
     return launches, wall
 
 
+# [serve]: the serving bundle (serving.py) against the live entry point
+SERVE_REQUESTS = (16, 16, 5, 37)        # frames; 5 pads a chunk, 37 takes three
+SERVE_BATCH = 16                        # the bundle's frame batch
+SERVE_WINDOW_S, SERVE_MIN_ROUNDS = 3.0, 10  # each of served and live, per dtype
+SERVE_PTI_STEPS = 20                    # the PTI-tuned generator of with_generator
+# float32 at T = 16 in one process: the same operators on the same batch
+# (expected bit-equal); across processes, and for padded and chunked requests
+# (other batch sizes), cuDNN may pick other algorithms, which the random
+# DECA -> dp -> A chain amplifies: the card-vs-CPU image bound of slice 1
+# (rtol 1e-3, atol 2e-4·max)
+SERVE_F32_EXACT, SERVE_RTOL, SERVE_ATOL = 1e-5, 1e-3, 2e-4
+SERVE_CHILD = r"""
+import json, sys, time
+import numpy as np, torch
+torch.backends.cudnn.allow_tf32 = False        # as this script's every phase
+torch.backends.cuda.matmul.allow_tf32 = False
+t0 = time.perf_counter()
+from stylegan_directions_face_reenactment_tpu_torch import serving
+from stylegan_directions_face_reenactment_tpu_torch.ops import fused_act, fused_conv_block, upfirdn2d_kernel
+pkg = "stylegan_directions_face_reenactment_tpu_torch"
+bad = [m for m in sys.modules if m.startswith((pkg + ".models", pkg + ".pipeline"))]
+assert not bad, f"the serving process imported model code: {bad}"
+kernels = (upfirdn2d_kernel.upfirdn2d_cuda, fused_act.fused_bias_act_cuda,
+           fused_conv_block.fused_conv_block_cuda)
+inp = np.load(sys.argv[3], allow_pickle=False)
+src = (inp["code"], {k: inp["ps_" + k] for k in ("pose", "alpha_shp", "alpha_exp", "cam")},
+       inp["ang"])
+out, report = {}, {"import_s": time.perf_counter() - t0}
+for tag, path in (("float32", sys.argv[1]), ("bfloat16", sys.argv[2])):
+    t1 = time.perf_counter()
+    prog = serving.load_reenact_bundle(path)
+    report[tag + "_load_s"] = time.perf_counter() - t1
+    start = 0
+    for r, t in enumerate(json.loads(sys.argv[5])):
+        for k in kernels:
+            k.launches = 0
+        img, lat = prog(*src, inp["targets"][start:start + t])
+        torch.cuda.synchronize()
+        report[f"{tag}_{r}_launches"] = [k.launches for k in kernels]
+        out[f"{tag}_{r}_img"], out[f"{tag}_{r}_lat"] = img.cpu().numpy(), lat.cpu().numpy()
+        start += t
+np.savez(sys.argv[4], **out)
+bad = [m for m in sys.modules if m.startswith((pkg + ".models", pkg + ".pipeline"))]
+assert not bad, f"the serving process imported model code: {bad}"
+report["no_model_modules"] = True
+print(json.dumps(report))
+"""
+
+
+def phase_serve(smi):
+    """[serve]: ``serving.py`` at full width (voxceleb 256, channel
+    multiplier 1, ``fan`` alignment with S3FD, frame batch 16), float32 and
+    bf16: ``export_reenact`` → ``save_reenact_bundle`` timed; a fresh
+    process that must import no ``models`` or ``pipeline`` module loads both
+    bundles and serves requests of 16, 16, 5 and 37 frames, each chunk
+    launching exactly the live call's K1/K2/K3, while this process runs the
+    live ``make_reenact_fn`` on the same requests and a PTI-tuned generator
+    through ``with_generator``; the served outputs against the live ones;
+    then served (the exported program in this process) against live
+    frames/s over one window each, in turns. Returns (launches, results)."""
+    from stylegan_directions_face_reenactment_tpu_torch import serving
+    from stylegan_directions_face_reenactment_tpu_torch.geometry import initialize_directions
+    from stylegan_directions_face_reenactment_tpu_torch.models.stylegan2 import (
+        generator_forward, mapping, mean_latent, style_to_wplus, synthesis)
+    from stylegan_directions_face_reenactment_tpu_torch.pipeline import (
+        make_reenact_fn, optimize_g, source_shape)
+    from stylegan_directions_face_reenactment_tpu_torch.weights import init_lpips
+
+    g, a, deca, sfd, fan = build_slice2_nets(None)
+    spec = initialize_directions("voxceleb", 15, 6.0)
+    with torch.inference_mode():
+        trunc = mean_latent(g, torch.Generator().manual_seed(3), 4096)
+        z = torch.randn(1, 512, generator=torch.Generator().manual_seed(4)).cuda()
+        code = style_to_wplus(g, [mapping(g, z)])
+        src_img = synthesis(g, code)
+        ps, ang = source_shape(deca, src_img, fan, sfd)
+        zt = torch.randn(sum(SERVE_REQUESTS), 512,
+                         generator=torch.Generator().manual_seed(30)).cuda()
+        targets = generator_forward(g, [zt], truncation=0.7,
+                                    truncation_latent=trunc)[0].clamp(-1, 1)
+    src = (code, ps, ang)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    expect = (K1_PER_REQUEST, K2_PER_REQUEST, K3_PER_PASS)
+    want_nodes = {"sdfr.upfirdn2d.default": K1_PER_REQUEST,
+                  "sdfr.fused_bias_act.default": K2_PER_REQUEST,
+                  "sdfr.fused_conv_block.default": K3_PER_PASS}
+    launches, results, lives, progs, dirs = [0, 0, 0], {}, {}, {}, {}
+    child = None
+    try:
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = str(dtype)[6:]
+            kw = dict(truncation_latent=trunc, compute_dtype=dtype, fan_params=fan,
+                      s3fd_params=sfd)
+            lives[tag] = make_reenact_fn(g, a, deca, spec, **kw)
+            t0 = time.perf_counter()
+            ep, weights, meta = serving.export_reenact(g, a, deca, spec,
+                                                       frame_batch=SERVE_BATCH, **kw)
+            t1 = time.perf_counter()
+            dirs[tag] = os.path.join(tmp, tag)
+            serving.save_reenact_bundle(dirs[tag], ep, weights, meta)
+            t2 = time.perf_counter()
+            nodes = Counter(str(n.target) for n in ep.graph.nodes if "sdfr" in str(n.target))
+            need(dict(nodes) == want_nodes, f"{tag}: the exported graph's operators {nodes}")
+            size = sum(os.path.getsize(os.path.join(dirs[tag], f))
+                       for f in os.listdir(dirs[tag]))
+            progs[tag] = serving.ReenactServingProgram(ep, weights, meta, torch.device("cuda"))
+            results[tag] = {"export_s": t1 - t0, "save_s": t2 - t1, "bundle_bytes": size}
+            print(f"[serve] {tag}: export_reenact {t1 - t0:.3f} s, save_reenact_bundle "
+                  f"{t2 - t1:.3f} s, bundle {size} bytes; graph operators {dict(nodes)}")
+        # a fresh serving process on both bundles, while the live calls run here
+        inputs = os.path.join(tmp, "inputs.npz")
+        np.savez(inputs, code=code.cpu().numpy(), ang=ang.cpu().numpy(),
+                 targets=targets.cpu().numpy(),
+                 **{"ps_" + k: v.cpu().numpy() for k, v in ps.items()})
+        outs = os.path.join(tmp, "served.npz")
+        t_child = time.perf_counter()
+        child = subprocess.Popen([sys.executable, "-c", SERVE_CHILD, dirs["float32"],
+                                  dirs["bfloat16"], inputs, outs, json.dumps(SERVE_REQUESTS)],
+                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                 cwd=os.path.dirname(os.path.abspath(__file__)))
+        want = {}
+        for tag, live in lives.items():
+            start = 0
+            for r, t in enumerate(SERVE_REQUESTS):
+                reset_counts()
+                img, lat = live(*src, targets[start:start + t])
+                torch.cuda.synchronize()
+                got = read_counts()
+                need(got == expect, f"{tag} live request {r}: K1/K2/K3 {got}, want {expect}")
+                want[(tag, r)] = (img.float().cpu(), lat.float().cpu())
+                start += t
+        # with_generator: a PTI-tuned generator swapped into the float32 program
+        with torch.inference_mode():
+            latent = generator_forward(g, [code], input_is_latent=True, truncation=0.7,
+                                       truncation_latent=trunc, return_latents=True)[1]
+        tuned, _ = optimize_g(g, latent, src_img, init_lpips(6), trunc,
+                              opt_steps=SERVE_PTI_STEPS)
+        reset_counts()
+        img_t, _ = progs["float32"].with_generator(tuned)(*src, targets[:SERVE_BATCH])
+        torch.cuda.synchronize()
+        need(read_counts() == expect, f"with_generator: K1/K2/K3 {read_counts()}")
+        for i in range(3):
+            launches[i] += expect[i]
+        w_img, _ = make_reenact_fn(tuned, a, deca, spec, truncation_latent=trunc,
+                                   fan_params=fan, s3fd_params=sfd)(*src, targets[:SERVE_BATCH])
+        err = max_err(img_t, w_img) / float(w_img.abs().max())
+        moved = max_err(want[("float32", 0)][0], w_img.cpu()) / float(w_img.abs().max())
+        need(err <= SERVE_F32_EXACT and moved > 1e-3,
+             f"with_generator: max |served - live| {err:.3g} of max (limit "
+             f"{SERVE_F32_EXACT}); the tuned generator moved the image {moved:.3g} of max")
+        try:
+            progs["float32"].with_generator(
+                {k: v for k, v in list(tuned.state_dict().items())[1:]})
+            need(False, "with_generator took a generator of other keys")
+        except ValueError:
+            pass
+        print(f"[serve] with_generator({SERVE_PTI_STEPS} PTI steps' generator): max |served "
+              f"- live| {err:.3g} of max; the tuning moved the image {moved:.3g} of max; a "
+              f"generator of other keys refused")
+        out, err_txt = child.communicate(timeout=600)
+        child_s = time.perf_counter() - t_child
+        need(child.returncode == 0, f"the serving process failed:\n{out}\n{err_txt[-4000:]}")
+        report = json.loads(out.strip().splitlines()[-1])
+        served = np.load(outs)
+        for tag in lives:
+            worst = {}
+            for r_i, t in enumerate(SERVE_REQUESTS):
+                chunks = -(-t // SERVE_BATCH)
+                got_l = tuple(report[f"{tag}_{r_i}_launches"])
+                need(got_l == tuple(chunks * e for e in expect),
+                     f"{tag} served request {r_i} ({t} frames): K1/K2/K3 {got_l}, want "
+                     f"{chunks} x {expect}")
+                for i in range(3):
+                    launches[i] += got_l[i]
+                img = torch.from_numpy(served[f"{tag}_{r_i}_img"])
+                lat = torch.from_numpy(served[f"{tag}_{r_i}_lat"])
+                w_img, w_lat = want[(tag, r_i)]
+                need(img.shape == w_img.shape and lat.shape == w_lat.shape
+                     and bool(torch.isfinite(img).all()),
+                     f"{tag} served request {r_i}: shapes {tuple(img.shape)}")
+                worst[r_i] = (max_err(img, w_img) / float(w_img.abs().max()),
+                              mean_rel(img, w_img), mean_rel(lat, w_lat))
+                if tag == "float32":
+                    need(allclose_scaled(img, w_img, SERVE_RTOL, SERVE_ATOL)
+                         and allclose_scaled(lat, w_lat, SERVE_RTOL, SERVE_ATOL),
+                         f"float32 served request {r_i} ({t} frames): beyond rtol "
+                         f"{SERVE_RTOL}, atol {SERVE_ATOL}·max (max err {worst[r_i][0]:.3g} "
+                         f"of max)")
+                else:
+                    need(worst[r_i][1] < BF16_DRIFT,
+                         f"bf16 served request {r_i}: image mean relative drift "
+                         f"{worst[r_i][1]:.4f} from the live call, limit {BF16_DRIFT}")
+            results[tag]["load_s"] = report[tag + "_load_s"]
+            results[tag]["worst"] = worst
+            print(f"[serve] {tag}: served in a fresh process (imports {report['import_s']:.3f} "
+                  f"s, load_reenact_bundle {report[tag + '_load_s']:.3f} s; no models/ or "
+                  f"pipeline/ module imported) against the live make_reenact_fn, per "
+                  f"request {SERVE_REQUESTS}: (max |diff| / max, image mean rel, latent "
+                  f"mean rel) " + ", ".join(f"{t}: {e[0]:.3g} {e[1]:.3g} {e[2]:.3g}"
+                                            for t, e in zip(SERVE_REQUESTS, worst.values()))
+                  + f"; K1/K2/K3 {'/'.join(map(str, expect))} a chunk")
+        print(f"[serve] the serving process took {child_s:.3f} s (beside the live calls)")
+        # frames/s, served (the exported program here) against live, in turns
+        with torch.inference_mode():
+            for tag, live in lives.items():
+                prog = progs[tag]
+                reqs = [targets[i * SERVE_BATCH:(i + 1) * SERVE_BATCH] for i in range(2)]
+                reset_counts()
+                s_img, s_lat = prog(*src, reqs[0])
+                torch.cuda.synchronize()
+                need(read_counts() == expect, f"{tag} served in-process: K1/K2/K3 "
+                     f"{read_counts()}")
+                for i in range(3):
+                    launches[i] += expect[i]
+                l_img, l_lat = live(*src, reqs[0])
+                same = (max_err(s_img, l_img) / float(l_img.float().abs().max()),
+                        max_err(s_lat, l_lat) / float(l_lat.float().abs().max()))
+                results[tag]["same_process"] = same
+                print(f"[serve] {tag}: in one process, served vs live on a request of "
+                      f"{SERVE_BATCH}: image {same[0]:.3g}, latents {same[1]:.3g} of max")
+                if tag == "float32":
+                    need(max(same) <= SERVE_F32_EXACT, f"float32 served vs live in one "
+                         f"process: {same} of max, limit {SERVE_F32_EXACT}")
+
+                def rnd(fn):
+                    t0 = time.perf_counter()
+                    for tg in reqs:
+                        fn(*src, tg)
+                    torch.cuda.synchronize()
+                    return 2 * SERVE_BATCH / (time.perf_counter() - t0)
+
+                rates = {"live": [], "served": []}
+                pair = [("live", live), ("served", prog)]
+                for name, fn in pair:
+                    rnd(fn)                                   # warm-up
+                # in turns, the first of each pair alternating; the garbage
+                # collector held off during the window (both sides alike)
+                gc.collect()
+                gc.disable()
+                t_start = time.perf_counter()
+                while (min(len(v) for v in rates.values()) < SERVE_MIN_ROUNDS
+                       or time.perf_counter() - t_start < 2 * SERVE_WINDOW_S):
+                    for name, fn in pair:
+                        rates[name].append(rnd(fn))
+                    pair.reverse()
+                gc.enable()
+                med = {k: statistics.median(v) for k, v in rates.items()}
+                results[tag].update(fps_live=med["live"], fps_served=med["served"],
+                                    rounds=len(rates["live"]),
+                                    fps_range={k: (min(v), max(v)) for k, v in rates.items()})
+                print(f"[serve] {tag}: frames/s on requests of {SERVE_BATCH} (median of "
+                      f"{len(rates['live'])} rounds each, in turns): served {med['served']:.2f}"
+                      f" ({min(rates['served']):.2f}-{max(rates['served']):.2f}), live "
+                      f"{med['live']:.2f} ({min(rates['live']):.2f}-{max(rates['live']):.2f}), "
+                      f"ratio {med['served'] / med['live']:.4f} on {smi}")
+                need(med["served"] >= 0.95 * med["live"],
+                     f"{tag}: served {med['served']:.2f} frames/s under 0.95x live "
+                     f"{med['live']:.2f}")
+    finally:
+        if child is not None and child.poll() is None:
+            child.kill()
+            child.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches, results
+
+
+# [heads]: the model heads off the serving path, card against CPU
+HEADS_BATCH = 4                         # D and the W+ encoder; the 3D landmarks' frames
+HEADS_CPU_FRAMES = 2                    # of the 562x1000 frames, held against the CPU
+HEADS_RTOL, HEADS_ATOL = 1e-3, 1e-4     # float32 card vs CPU, atol relative to max
+
+
+def capture_kernel_calls(fn):
+    """Run ``fn()`` recording the K1 and K2 operator calls it makes:
+    ([(x, taps, taps_shape, up, pad)], [(x, bias, slope, scale)]), inputs
+    cloned."""
+    from stylegan_directions_face_reenactment_tpu_torch.ops import fused_act, upfirdn2d_kernel
+    k1s, k2s = [], []
+    k1, k2 = upfirdn2d_kernel.upfirdn2d_op, fused_act.fused_bias_act_op
+
+    def rec1(x, taps, shape, up, pad):
+        k1s.append((x.detach().clone(), taps, shape, up, pad))
+        return k1(x, taps, shape, up, pad)
+
+    def rec2(x, bias, slope, scale):
+        k2s.append((x.detach().clone(), None if bias is None else bias.detach().clone(),
+                    slope, scale))
+        return k2(x, bias, slope, scale)
+
+    with mock.patch.object(upfirdn2d_kernel, "upfirdn2d_op", rec1), \
+            mock.patch.object(fused_act, "fused_bias_act_op", rec2):
+        fn()
+    return k1s, k2s
+
+
+def hold_captured(tag, k1s, k2s):
+    """Each captured K1 and K2 call's kernel against its plain version on
+    the same input (these launches are not the path's)."""
+    from stylegan_directions_face_reenactment_tpu_torch.ops.fused_act import (
+        fused_bias_act_cuda, fused_leaky_relu_plain)
+    from stylegan_directions_face_reenactment_tpu_torch.ops.upfirdn2d_kernel import (
+        upfirdn2d_cuda, upfirdn2d_plain)
+    worst, shapes = {"K1": 0.0, "K2": 0.0}, set()
+    for x, taps, shape, up, pad in k1s:
+        k = torch.tensor(taps).reshape(shape)
+        worst["K1"] = max(worst["K1"], max_err(upfirdn2d_cuda(x, (tuple(taps), tuple(shape)),
+                                                              up, tuple(pad)),
+                                               upfirdn2d_plain(x, k, up=up, pad=tuple(pad))))
+        shapes.add(("K1", tuple(x.shape), tuple(pad)))
+    for x, b, slope, scale in k2s:
+        worst["K2"] = max(worst["K2"], max_err(fused_bias_act_cuda(x, b, slope, scale),
+                                               fused_leaky_relu_plain(x, b, slope, scale)))
+        shapes.add(("K2", tuple(x.shape)))
+    need(worst["K1"] <= F32_TOL and worst["K2"] <= F32_TOL,
+         f"[heads] {tag}: a kernel disagrees with its plain version: {worst}")
+    return worst, len(shapes)
+
+
+def phase_heads(smi):
+    """[heads]: each head off the serving path on the card against the CPU
+    on the same weights (float32, TF32 off): ``Discriminator(256,
+    channel_multiplier=2)`` and ``WPlusEncoder(256)`` at B = 4, with every K1
+    (the downsampling blurs at pads (2, 2) and (1, 1)) and K2 call they make
+    (rank 4 and the final linear's rank 2) held against the plain versions;
+    the two pSp heads at 256; ``estimate_landmarks_3d`` with the full
+    ResNetDepth (3, 8, 36, 3) on 4 frames of 562x1000 (S3FD gated on
+    content, so the kept face lies on each frame's patch); PTI's
+    ``space_regularizer_loss`` at B = 1 and its backward. Returns the
+    launches of those runs (a Counter)."""
+    from stylegan_directions_face_reenactment_tpu_torch.losses.pti import (
+        PTIHyperparams, space_regularizer_loss)
+    from stylegan_directions_face_reenactment_tpu_torch.models.e4e import (
+        BackboneEncoderUsingLastLayerIntoW, GradualStyleEncoder)
+    from stylegan_directions_face_reenactment_tpu_torch.models.face.landmarks import (
+        estimate_landmarks_3d)
+    from stylegan_directions_face_reenactment_tpu_torch.models.face.fan import predict_depth
+    from stylegan_directions_face_reenactment_tpu_torch.models.stylegan2 import (
+        generator_forward, mapping)
+    from stylegan_directions_face_reenactment_tpu_torch.weights import (
+        init_discriminator, init_e4e, init_fan, init_generator, init_lpips,
+        init_resnet_depth, init_s3fd, init_wplus_encoder)
+
+    launches = Counter()
+
+    def run(tag, fn, want_counts=None):
+        """fn() on the card with the counts from 0, synchronized; its
+        launches added to ``launches``; returns (output, seconds, counts)."""
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = dict(zip(("K1", "K2", "K3"), read_counts()))
+        got.update(zip(("K1-bwd", "K1-bwd down 2", "K2-bwd"), read_bwd_counts()))
+        if want_counts is not None:
+            need(all(got[k] == v for k, v in want_counts.items()),
+                 f"[heads] {tag}: launches {got}, want {want_counts}")
+        launches.update({k: v for k, v in got.items() if k != "K1-bwd down 2"})
+        return out, dt, got
+
+    def held(tag, card, cpu, rtol=HEADS_RTOL, atol=HEADS_ATOL):
+        card, cpu = card.detach().float().cpu(), cpu.detach().float()
+        err = max_err(card, cpu) / float(cpu.abs().max())
+        need(bool(torch.isfinite(card).all()) and allclose_scaled(card, cpu, rtol, atol),
+             f"[heads] {tag}: card vs CPU max err {err:.3g} of max (rtol {rtol}, atol "
+             f"{atol}*max)")
+        return err
+
+    gen = torch.Generator().manual_seed(40)
+    x = (torch.rand(HEADS_BATCH, SIZE, SIZE, 3, generator=gen) * 2 - 1)
+    report = []
+    # (a) the discriminator and the W+ encoder
+    for name, make, want in (
+            ("Discriminator(256, channel_multiplier=2)",
+             lambda dev: init_discriminator(41, SIZE, 2, device=dev), {"K1": 12, "K2": 15}),
+            ("WPlusEncoder(256)", lambda dev: init_wplus_encoder(42, SIZE, device=dev),
+             {"K1": 12, "K2": 13})):
+        m, mc = make(None), make("cpu")
+        with torch.no_grad():
+            out, dt, _ = run(name, lambda: m(x.cuda()), want)
+            k1s, k2s = capture_kernel_calls(lambda: m(x.cuda()))
+            worst, n_shapes = hold_captured(name, k1s, k2s)
+            err = held(name, out, mc(x))
+        report.append(f"{name} {tuple(out.shape)}: {dt * 1e3:.2f} ms (first call), card vs "
+                      f"CPU {err:.3g} of max; K1 {want['K1']} / K2 {want['K2']} launches, "
+                      f"{n_shapes} kernel shapes held against the plain versions (max err "
+                      f"K1 {worst['K1']:.3g}, K2 {worst['K2']:.3g})")
+    # (b) the pSp heads at 256 (e4e's trunk, residual branches damped as slice 3's)
+    xp = x[:1]
+    for name, cls in (("GradualStyleEncoder", GradualStyleEncoder),
+                      ("BackboneEncoderUsingLastLayerIntoW", BackboneEncoderUsingLastLayerIntoW)):
+        mc = init_e4e(43, SIZE, device="cpu", cls=cls)
+        with torch.no_grad():
+            for blk in mc.body:
+                blk.res_layer[4].weight.mul_(E4E_BN2_SCALE)
+        m = copy.deepcopy(mc).cuda()
+        with torch.no_grad():
+            out, dt, _ = run(name, lambda: m(xp.cuda()))
+            err = held(name, out, mc(xp), 1e-4, 1e-4)
+        report.append(f"{name} {tuple(out.shape)}: {dt * 1e3:.2f} ms, card vs CPU {err:.3g} "
+                      f"of max")
+    # (c) the 3D landmarks on 562x1000 frames with a textured patch each
+    sfd, fan, depth = init_s3fd(5, device="cpu"), init_fan(6, 4, device="cpu"), \
+        init_resnet_depth(44, device="cpu")
+    gate_s3fd_on_content(sfd)
+    randomize_bn(fan, 45)
+    randomize_bn(depth, 46)
+    frames = torch.from_numpy(np.stack([patch_frame(100 + 60 * i, 150 + 180 * i, 47 + i)
+                                        for i in range(HEADS_BATCH)])).float()
+    nets = [copy.deepcopy(n).cuda() for n in (sfd, fan, depth)]
+    with torch.no_grad():
+        (lm, ok), dt, got = run("estimate_landmarks_3d",
+                                lambda: estimate_landmarks_3d(*nets, frames.cuda()),
+                                {"K3": K3_PER_PASS})
+        lm_cpu, ok_cpu = estimate_landmarks_3d(sfd, fan, depth, frames[:HEADS_CPU_FRAMES])
+        need(tuple(lm.shape) == (HEADS_BATCH, 68, 3) and bool(ok.all())
+             and bool(torch.isfinite(lm).all()),
+             f"[heads] estimate_landmarks_3d: {tuple(lm.shape)}, ok {ok.tolist()}")
+        need(torch.equal(ok[:HEADS_CPU_FRAMES].cpu(), ok_cpu), "[heads] 3D: ok masks differ")
+        xy = lm[:HEADS_CPU_FRAMES, :, :2].cpu()
+        same = float((xy == lm_cpu[..., :2]).float().mean())
+        need(same >= 0.9 and float((xy - lm_cpu[..., :2]).abs().max()) <= 8.0,
+             f"[heads] 3D: {same:.3f} of the landmark coordinates equal the CPU's")
+        # the depth net on the same inputs
+        rs = np.random.RandomState(48)
+        crops = torch.from_numpy(rs.rand(2, 256, 256, 3).astype(np.float32))
+        pts = torch.from_numpy(rs.uniform(1, 64, (2, 68, 2)).astype(np.float32))
+        scale = torch.tensor([1.2, 0.8])
+        d_card = predict_depth(nets[2], crops.cuda(), pts.cuda(), scale.cuda())
+        err_d = held("predict_depth", d_card, predict_depth(depth, crops, pts, scale))
+        err_z = mean_rel(lm[:HEADS_CPU_FRAMES, :, 2].cpu(), lm_cpu[..., 2])
+        need(err_z < 1e-2, f"[heads] 3D depths card vs CPU mean rel {err_z:.3g}")
+    report.append(f"estimate_landmarks_3d (ResNetDepth (3, 8, 36, 3)) on {HEADS_BATCH} "
+                  f"frames of {FRAME_HW[0]}x{FRAME_HW[1]}: {dt * 1e3:.2f} ms (first call), K3 "
+                  f"{got['K3']} launches; frames 0-{HEADS_CPU_FRAMES - 1} vs CPU: {same:.4f} of "
+                  f"the xy equal, depth mean rel {err_z:.3g}; predict_depth on the same inputs "
+                  f"{err_d:.3g} of max")
+    # (d) PTI's space regulariser at B = 1 and its backward
+    g0c = init_generator(0, SIZE, 512, 8, CM, device="cpu")
+    g1c = copy.deepcopy(g0c)
+    with torch.no_grad():
+        for p in g1c.parameters():
+            p.mul_(1 + 0.05 * torch.randn(p.shape, generator=gen))
+    lpc = init_lpips(8, device="cpu")
+    with torch.no_grad():
+        w = mapping(g0c, torch.randn(1, 512, generator=gen))
+    hp = PTIHyperparams(latent_ball_num_of_samples=1)
+
+    def fwd(g, code):
+        return generator_forward(g, [code], input_is_latent=True)[0]
+
+    g0, g1, lp = (copy.deepcopy(m).cuda() for m in (g0c, g1c, lpc))
+    loss, dt, got = run("space_regularizer_loss", lambda: space_regularizer_loss(
+        fwd, g1, g0, lp, w.cuda(), torch.Generator().manual_seed(49), hp).backward() or None)
+    loss = space_regularizer_loss(fwd, g1, g0, lp, w.cuda(), torch.Generator().manual_seed(49),
+                                  hp)
+    loss_cpu = space_regularizer_loss(fwd, g1c, g0c, lpc, w,
+                                      torch.Generator().manual_seed(49), hp)
+    rel = abs(float(loss) - float(loss_cpu)) / abs(float(loss_cpu))
+    need(rel <= 1e-4 and got["K1"] == 2 * K1_PER_REQUEST and got["K2-bwd"] > 0,
+         f"[heads] space_regularizer_loss: card {float(loss):.7g} vs CPU "
+         f"{float(loss_cpu):.7g} (rel {rel:.3g}); launches {got}")
+    report.append(f"space_regularizer_loss at B = 1: {float(loss):.7g} vs CPU "
+                  f"{float(loss_cpu):.7g} (rel {rel:.3g}), with its backward {dt * 1e3:.2f} ms; "
+                  f"launches {got}")
+    for line in report:
+        print(f"[heads] {line} on {smi}")
+    return launches
+
+
 def main():
     name, smi = phase_device()
     torch.backends.cudnn.allow_tf32 = False
@@ -3341,6 +3825,9 @@ def main():
         report_launches, report_wall = phase_report(smi, os.path.join(CLI_DIR, "targets"))
     finally:
         shutil.rmtree(CLI_DIR, ignore_errors=True)
+    # slice 9, after every earlier phase, so that theirs read as they were recorded
+    serve_launches, serve = phase_serve(smi)
+    heads_launches = phase_heads(smi)
     for label, res in (("slice 1, resize path", results),
                        ("slice 2, default path, 562x1000 raw frames", results2)):
         for tag, r in res.items():
@@ -3377,8 +3864,14 @@ def main():
                                           mesh_fps.items())
           + f"; [stats] {stats_sps:.2f} samples/s (main wall {stats_wall:.3f} s); [report] "
           f"wall {report_wall:.3f} s for {REPORT_FRAMES} frames on {smi}")
+    for tag, r in serve.items():
+        print(f"[result] [serve] {tag}: served {r['fps_served']:.2f} frames/s, live "
+              f"{r['fps_live']:.2f} (median of {r['rounds']} rounds each); export "
+              f"{r['export_s']:.3f} s, save {r['save_s']:.3f} s, load {r['load_s']:.3f} s, "
+              f"bundle {r['bundle_bytes']} bytes on {smi}")
     apps = (cli_launches, edit_launches, invert_launches, train_launches,
-            Counter(ddp_launches), Counter(mesh_launches), stats_launches, report_launches)
+            Counter(ddp_launches), Counter(mesh_launches), stats_launches, report_launches,
+            Counter(dict(zip(("K1", "K2", "K3"), serve_launches))), heads_launches)
     launches = [launches[0] + launches2[0] + fwd3[0] + sum(c["K1"] for c in apps),
                 launches[1] + launches2[1] + fwd3[1] + sum(c["K2"] for c in apps),
                 launches2[2] + fwd3[2] + grad_launches["K3"] + sum(c["K3"] for c in apps),
@@ -3425,10 +3918,10 @@ def main():
 
 def main_only(names):
     """``python3 chip_smoke.py --only ddp [ddp_cards] [mesh] [stats]
-    [report]``: those phases of slice 8 alone, after the device, the build
-    and the CLI and train inputs (``ddp_cards`` is [ddp]'s (a) and (c), the
-    multi-card parts, for a machine with several cards). It prints no last
-    line."""
+    [report] [serve] [heads]``: those phases alone, after the device, the
+    build and, for slice 8's, the CLI and train inputs (``ddp_cards`` is
+    [ddp]'s (a) and (c), the multi-card parts, for a machine with several
+    cards). It prints no last line."""
     _, smi = phase_device()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3436,11 +3929,13 @@ def main_only(names):
     phases = {"ddp": lambda: phase_ddp(smi, tree),
               "ddp_cards": lambda: phase_ddp(smi, tree, parts=("a", "c")),
               "mesh": lambda: phase_mesh(smi), "stats": lambda: phase_stats(smi),
-              "report": lambda: phase_report(smi, os.path.join(CLI_DIR, "targets"))}
+              "report": lambda: phase_report(smi, os.path.join(CLI_DIR, "targets")),
+              "serve": lambda: phase_serve(smi), "heads": lambda: phase_heads(smi)}
     need(names and all(n in phases for n in names), f"--only takes phases of {list(phases)}")
     try:
-        write_cli_inputs()
-        tree = write_train_inputs()
+        if set(names) - {"serve", "heads"}:     # slice 8's phases read the CLI's files
+            write_cli_inputs()
+            tree = write_train_inputs()
         for n in names:
             t0 = time.perf_counter()
             phases[n]()

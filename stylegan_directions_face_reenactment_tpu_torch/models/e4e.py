@@ -7,9 +7,11 @@ W+ row, and e4e's progressive scheme, w0 plus a delta a row (the inference
 stage, every delta on). :class:`Encoder4Editing` holds the parameters under
 the reference's names (``input_layer``, ``body``, ``styles.N.convs.N``,
 ``styles.N.linear``, ``latlayer1``, ``latlayer2``); :func:`e4e_forward`
-holds the math. The pSp heads (``GradualStyleEncoder``,
-``BackboneEncoderUsingLastLayerIntoW``), which the pipeline does not use,
-are not ported yet.
+holds the math. The two pSp heads, which the pipeline does not use, sit
+beside it on the same IR-SE trunk: :class:`GradualStyleEncoder` (every
+style from its own head, no w0 + delta) and
+:class:`BackboneEncoderUsingLastLayerIntoW` (the trunk's last map pooled
+into one W).
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch.nn as nn
 
 from ..ops import equal_linear
 from .irse import input_layer, input_layer_module, ir_body, ir_body_module
-from .nn import conv2d, leaky_relu, resize_bilinear
+from .nn import adaptive_avg_pool2d, conv2d, leaky_relu, resize_bilinear
 from .stylegan2 import EqualLinear
 
 COARSE_IND = 3
@@ -97,3 +99,49 @@ def e4e_forward(e: Encoder4Editing, x: torch.Tensor) -> torch.Tensor:
             features = upsample_add(p2, conv2d(c1, e.latlayer2.weight, e.latlayer2.bias))
         deltas.append(gradual_style_block(e.styles[i], features))
     return w0[:, None, :] + torch.stack(deltas, dim=1)
+
+
+class GradualStyleEncoder(Encoder4Editing):
+    """pSp's GradualStyleEncoder (``psp_encoders.py:57-120``): e4e's
+    parameters and keys, every style from its own head."""
+
+    def forward(self, x):
+        return gradual_style_encoder_forward(self, x)
+
+
+def gradual_style_encoder_forward(e: Encoder4Editing, x: torch.Tensor) -> torch.Tensor:
+    """x (B, H, W, 3) in [-1, 1] → W+ (B, style_count, 512), all styles
+    independent (``psp_encoders.py:94-120``)."""
+    x = input_layer(e.input_layer, x.permute(0, 3, 1, 2))
+    _, (c1, c2, c3) = ir_body(e.body, x, taps=TAPS)
+    latents = [gradual_style_block(e.styles[j], c3) for j in range(COARSE_IND)]
+    p2 = upsample_add(c3, conv2d(c2, e.latlayer1.weight, e.latlayer1.bias))
+    latents += [gradual_style_block(e.styles[j], p2) for j in range(COARSE_IND, MIDDLE_IND)]
+    p1 = upsample_add(p2, conv2d(c1, e.latlayer2.weight, e.latlayer2.bias))
+    latents += [gradual_style_block(e.styles[j], p1)
+                for j in range(MIDDLE_IND, e.style_count)]
+    return torch.stack(latents, dim=1)
+
+
+class BackboneEncoderUsingLastLayerIntoW(nn.Module):
+    """pSp's BackboneEncoderUsingLastLayerIntoW (``psp_encoders.py:201-232``):
+    ``input_layer``, ``body`` and an equalized ``linear`` 512 → 512."""
+
+    def __init__(self):
+        super().__init__()
+        self.input_layer = input_layer_module()
+        self.body = ir_body_module()
+        self.linear = EqualLinear(512, 512)
+
+    def forward(self, x):
+        return backbone_encoder_into_w_forward(self, x)
+
+
+def backbone_encoder_into_w_forward(e: BackboneEncoderUsingLastLayerIntoW,
+                                    x: torch.Tensor) -> torch.Tensor:
+    """x (B, H, W, 3) in [-1, 1] → W (B, 512): the trunk's last map,
+    average-pooled to 1×1, through the linear."""
+    x = input_layer(e.input_layer, x.permute(0, 3, 1, 2))
+    x, _ = ir_body(e.body, x)
+    x = adaptive_avg_pool2d(x, (1, 1)).reshape(x.shape[0], 512)
+    return equal_linear(x, e.linear.weight, e.linear.bias)

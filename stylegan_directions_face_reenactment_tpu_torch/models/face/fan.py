@@ -8,7 +8,9 @@ reference checkpoint's key layout (``conv1``, ``bn1``, ``conv2..4``,
 ``bl{i}``/``al{i}`` for every module but the last). The modules run as a
 Python loop; the last module has no ``bl``/``al`` (the JAX package zero-
 fills them only to share one ``lax.scan`` body, and their result is
-discarded). ``ResNetDepth`` and the 3D path are not ported yet.
+discarded). :class:`ResNetDepth` (``fan_model/models.py:205-265``) with
+:func:`draw_gaussians` and :func:`predict_depth` gives the 3D landmarks'
+depth (``landmarks.py::estimate_landmarks_3d``).
 
 Public functions take and return the JAX layouts (NHWC crops, NHWC
 heatmaps (B, 64, 64, 68), (B, 68, 2) points) and compute in NCHW inside.
@@ -23,8 +25,10 @@ from typing import List
 import torch
 import torch.nn as nn
 
-from ...ops.fused_conv_block import conv_block_fused, fused_convblock_enabled
-from ..nn import avg_pool2d, batch_norm, conv2d, relu, upsample_nearest
+from ...ops.fused_conv_block import (args_in_program, conv_block_fused, fused_conv_block,
+                                     fused_convblock_enabled)
+from ..deca.resnet import Bottleneck, _bottleneck
+from ..nn import avg_pool2d, batch_norm, conv2d, linear, max_pool2d, relu, upsample_nearest
 
 HOURGLASS_DEPTH = 4
 
@@ -84,8 +88,12 @@ class FAN(nn.Module):
 
 
 def conv_block(p: ConvBlock, x: torch.Tensor) -> torch.Tensor:
-    """x (B, Cin, H, W) → (B, Cout, H, W): K3 for the blocks its gate takes,
-    else the plain composition."""
+    """x (B, Cin, H, W) → (B, Cout, H, W): K3 for the blocks of a program
+    (with the program's own folds and packed weights, on every device) and
+    for those its gate takes, else the plain composition."""
+    args = args_in_program(p)
+    if args is not None:
+        return fused_conv_block(x, args)
     if fused_convblock_enabled(p, x):
         return conv_block_fused(p, x)
     out1 = conv2d(relu(batch_norm(x, p.bn1)), p.conv1.weight, padding=1)
@@ -175,3 +183,64 @@ def landmarks_to_image_coords(pts: torch.Tensor, center: torch.Tensor,
     h = 200.0 * scale[:, None, None]
     out = (pts / resolution) * h + (center[:, None, :] - h / 2.0)
     return torch.trunc(out) if truncate else out
+
+
+# ---------------------------------------------------------------------------
+# 3D landmarks: the depth net
+# ---------------------------------------------------------------------------
+
+DEPTH_LAYERS = (3, 8, 36, 3)
+
+
+class ResNetDepth(nn.Module):
+    """ResNetDepth (``fan_model/models.py:205-265``): a bottleneck ResNet
+    over the crop and 68 landmark heatmaps (71 channels) → 68 depths, under
+    the reference's keys (``conv1``, ``bn1``, ``layer{1..4}.N.*``, ``fc``)."""
+
+    def __init__(self, layers=DEPTH_LAYERS, num_classes: int = 68):
+        super().__init__()
+        self.conv1 = nn.Conv2d(3 + 68, 64, 7, stride=2, padding=3, bias=False)
+        self.bn1 = nn.BatchNorm2d(64)
+        cin = 64
+        for stage, (blocks, planes, stride) in enumerate(
+                zip(layers, (64, 128, 256, 512), (1, 2, 2, 2))):
+            layer = []
+            for b in range(blocks):
+                layer.append(Bottleneck(cin, planes, stride if b == 0 else 1))
+                cin = planes * 4
+            setattr(self, f"layer{stage + 1}", nn.Sequential(*layer))
+        self.fc = nn.Linear(cin, num_classes)
+
+
+def resnet_depth_forward(p: ResNetDepth, x: torch.Tensor) -> torch.Tensor:
+    """x (B, 256, 256, 71) NHWC, the crop and the heatmaps → (B, 68)."""
+    out = conv2d(x.permute(0, 3, 1, 2), p.conv1.weight, stride=2, padding=3)
+    out = max_pool2d(relu(batch_norm(out, p.bn1)), 3, stride=2, padding=1)
+    for i in range(1, 5):
+        for block in getattr(p, f"layer{i}"):
+            out = _bottleneck(block, out)
+    out = avg_pool2d(out, 7)
+    return linear(out.reshape(out.shape[0], -1), p.fc.weight, p.fc.bias)
+
+
+def draw_gaussians(points: torch.Tensor, size: int = 256, sigma: float = 2.0) -> torch.Tensor:
+    """One gaussian heatmap a landmark, batched (the reference's
+    ``draw_gaussian`` loop, ``fan_model/utils.py:39-61``): the peak at the
+    1-based point, clipped at 1; landmarks with x <= 0 are skipped
+    (``landmarks_estimation.py:169``). points (B, L, 2) → (B, size, size, L)."""
+    grid = torch.arange(1, size + 1, dtype=torch.float32, device=points.device)
+    gy = grid[None, :, None, None] - points[:, None, None, :, 1]
+    gx = grid[None, None, :, None] - points[:, None, None, :, 0]
+    g = torch.exp(-(gy ** 2 + gx ** 2) / (2.0 * sigma ** 2))
+    valid = (points[:, None, None, :, 0] > 0).to(g.dtype)
+    return torch.clamp_max(g * valid, 1.0)
+
+
+def predict_depth(depth: ResNetDepth, crops01: torch.Tensor, pts_hm: torch.Tensor,
+                  scale: torch.Tensor) -> torch.Tensor:
+    """The 3D landmarks' depths (``landmarks_estimation.py:165-181``): crops01
+    (B, 256, 256, 3) in [0, 1], pts_hm (B, 68, 2) heatmap-frame peaks,
+    scale (B,) → (B, 68) depths in image units (depth · 200·scale / 256)."""
+    heat = draw_gaussians(pts_hm * 4.0, size=256, sigma=2.0)
+    out = resnet_depth_forward(depth, torch.cat([crops01.to(heat.dtype), heat], dim=-1))
+    return out * (200.0 * scale[:, None] / 256.0)

@@ -3,8 +3,9 @@
 Counterpart of the JAX package's ``models/face/landmarks.py`` (the
 reference's ``LandmarksEstimation``), batched: the reference face of each
 image, its center and scale, the integer-cornered crop resized to 256 as
-two dense contractions, FAN heatmaps → sub-pixel peaks → image coords.
-``estimate_landmarks_3d`` (the depth net) is not ported yet.
+two dense contractions, FAN heatmaps → sub-pixel peaks → image coords;
+:func:`estimate_landmarks_3d` adds each landmark's depth from the depth
+net.
 """
 
 from __future__ import annotations
@@ -14,7 +15,8 @@ from typing import Optional, Tuple
 import torch
 
 from ..nn import warp_from_coords
-from .fan import FAN, fan_forward, heatmaps_to_landmarks, landmarks_to_image_coords
+from .fan import (FAN, ResNetDepth, fan_forward, heatmaps_to_landmarks,
+                  landmarks_to_image_coords, predict_depth)
 from .s3fd import S3FD, detect_faces
 
 REFERENCE_SCALE = 195.0  # `sfd/sfd_detector.py` (face-alignment convention)
@@ -105,3 +107,25 @@ def estimate_landmarks(s3fd: S3FD, fan: FAN, images_rgb255: torch.Tensor,
     heatmaps = fan_forward(fan, crops)[-1].float()
     pts_img = landmarks_to_image_coords(heatmaps_to_landmarks(heatmaps), center, scale)
     return pts_img, ok, heatmaps
+
+
+def estimate_landmarks_3d(s3fd: S3FD, fan: FAN, depth: ResNetDepth,
+                          images_rgb255: torch.Tensor, conf_thresh: float = 0.99
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The 3D variant (``landmarks_estimation.py`` type '3D'): the 2D
+    landmarks of the best NMS box and their depths from the depth net fed
+    with the crop and a gaussian heatmap a landmark (``:165-181``). images
+    (B, H, W, 3) RGB 0-255, the vendored detector input (raw RGB, no mean).
+    Returns ((B, 68, 3), ok (B,)). The detector's input and the box are
+    constants to autograd, as the JAX package's two ``stop_gradient``s;
+    the crops, FAN and the depth net are not."""
+    boxes, valid = detect_faces(s3fd, images_rgb255.detach(), subtract_mean=False)
+    best = boxes[:, 0].float().detach()
+    ok = valid[:, 0] & (best[:, 4] > conf_thresh)
+    center, scale = box_to_center_scale(best)
+    crops = crop_faces(images_rgb255, center, scale, 256) / 255.0
+    heatmaps = fan_forward(fan, crops)[-1]
+    pts_hm = heatmaps_to_landmarks(heatmaps)
+    pts_img = landmarks_to_image_coords(pts_hm, center, scale)
+    z = predict_depth(depth, crops, pts_hm, scale)
+    return torch.cat([pts_img, z[..., None]], dim=-1), ok

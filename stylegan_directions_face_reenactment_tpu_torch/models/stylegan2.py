@@ -1,7 +1,12 @@
-"""StyleGAN2 generator as ``nn.Module``s, computing in NCHW.
+"""StyleGAN2 generator, discriminator and W+ encoder as ``nn.Module``s,
+computing in NCHW.
 
-PyTorch counterpart of the generator half of
-``stylegan_directions_face_reenactment_tpu/models/stylegan2.py``. The
+PyTorch counterpart of ``stylegan_directions_face_reenactment_tpu/models/
+stylegan2.py``. The discriminator and the W+ ResNet encoder
+(:class:`Discriminator`, :class:`WPlusEncoder`, the reference's
+``model.py:542-710``) are off the serving path; their downsampling blurs go
+through K1 (pads (2, 2) before a 3×3 stride-2 conv, (1, 1) before the 1×1
+skip) and their activations through K2, at rank 2 in the final linear. The
 modules hold the parameters, named like the reference's ``model.py``
 (``style.N``, ``input.input``, ``conv1``, ``to_rgb1``, ``convs.N``,
 ``to_rgbs.N``, ``noises.noise_N``); the functions below hold the forward
@@ -27,11 +32,13 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 
-from ..ops import (equal_linear, fused_leaky_relu, make_kernel,
-                   modulated_conv2d, pixel_norm, upsample2d)
+from ..ops import (blur, equal_conv2d, equal_linear, fused_leaky_relu, make_kernel,
+                   modulated_conv2d, pixel_norm, scaled_leaky_relu, upsample2d)
+from ..ops.upfirdn2d import kernel_array
+from ..ops.upfirdn2d_kernel import taps_of
 
 BLUR_KERNEL = (1, 3, 3, 1)
-_RGB_UP_KERNEL = make_kernel(BLUR_KERNEL, gain=4)
+_RGB_UP_KERNEL = taps_of(kernel_array(BLUR_KERNEL, gain=4))   # K1's constant taps
 
 
 def channel_map(channel_multiplier: int = 2) -> dict:
@@ -100,6 +107,9 @@ class FusedLeakyReLU(nn.Module):
     def __init__(self, channels: int):
         super().__init__()
         self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x):
+        return fused_leaky_relu(x, self.bias)
 
 
 class StyledConv(nn.Module):
@@ -273,3 +283,150 @@ def generator_forward(g: Generator, styles: Sequence[torch.Tensor], *,
     latent = style_to_wplus(g, styles, inject_index)
     image = synthesis(g, latent, noise, compute_dtype=compute_dtype)
     return image, (latent if return_latents else None)
+
+
+# ---------------------------------------------------------------------------
+# Discriminator / W+ encoder (`model.py:542-710`), off the serving path
+# ---------------------------------------------------------------------------
+
+class Blur(nn.Module):
+    """FIR blur (K1) with the reference's ``kernel`` buffer (the taps,
+    normalized) and a fixed pad."""
+
+    def __init__(self, kernel=BLUR_KERNEL, pad: Tuple[int, int] = (0, 0)):
+        super().__init__()
+        self.register_buffer("kernel", make_kernel(kernel))
+        self.pad = pad
+
+    def forward(self, x):
+        return blur(x, self.kernel, self.pad)
+
+
+class EqualConv2d(nn.Module):
+    """Equalized-LR conv, weight OIHW at unit scale."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int = 1,
+                 padding: int = 0, bias: bool = True):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(out_ch, in_ch, kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
+        self.stride, self.padding = stride, padding
+
+    def forward(self, x):
+        return equal_conv2d(x, self.weight, self.bias, stride=self.stride,
+                            padding=self.padding)
+
+
+class ScaledLeakyReLU(nn.Module):
+    def forward(self, x):
+        return scaled_leaky_relu(x)
+
+
+class ConvLayer(nn.Sequential):
+    """[Blur →] equalized conv → activation (``model.py:542-588``); with
+    ``downsample`` the blur pads ((p + 1) // 2, p // 2), p = 2 + k − 1, and
+    the conv has stride 2. Keys as the reference's: ``0.kernel``,
+    ``1.weight``, ``2.bias`` (downsampling) or ``0.weight``, ``1.bias``."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int, downsample: bool = False,
+                 bias: bool = True, activate: bool = True):
+        layers = []
+        if downsample:
+            p = (len(BLUR_KERNEL) - 2) + (kernel_size - 1)
+            layers.append(Blur(BLUR_KERNEL, pad=((p + 1) // 2, p // 2)))
+            stride, padding = 2, 0
+        else:
+            stride, padding = 1, kernel_size // 2
+        layers.append(EqualConv2d(in_ch, out_ch, kernel_size, stride=stride, padding=padding,
+                                  bias=bias and not activate))
+        if activate:
+            layers.append(FusedLeakyReLU(out_ch) if bias else ScaledLeakyReLU())
+        super().__init__(*layers)
+
+
+class ResBlock(nn.Module):
+    """conv1 (3×3) → conv2 (3×3, downsample), plus a 1×1 downsampling skip
+    without activation, summed and scaled by 1/√2."""
+
+    def __init__(self, in_ch: int, out_ch: int):
+        super().__init__()
+        self.conv1 = ConvLayer(in_ch, in_ch, 3)
+        self.conv2 = ConvLayer(in_ch, out_ch, 3, downsample=True)
+        self.skip = ConvLayer(in_ch, out_ch, 1, downsample=True, activate=False, bias=False)
+
+    def forward(self, x):
+        return (self.conv2(self.conv1(x)) + self.skip(x)) / math.sqrt(2.0)
+
+
+def _res_trunk(size: int, channels: dict) -> List[nn.Module]:
+    """ConvLayer 1×1 from RGB, then a ResBlock a resolution down to 4²."""
+    convs = [ConvLayer(3, channels[size], 1)]
+    in_ch = channels[size]
+    for i in range(int(math.log2(size)), 2, -1):
+        out_ch = channels[2 ** (i - 1)]
+        convs.append(ResBlock(in_ch, out_ch))
+        in_ch = out_ch
+    return convs
+
+
+def minibatch_stddev(x: torch.Tensor, group_size: int = 4, num_feat: int = 1) -> torch.Tensor:
+    """Append the minibatch-stddev feature map (``model.py:657-664``): the
+    standard deviation over groups of ``min(B, group_size)`` images,
+    averaged over channels and pixels. x NCHW."""
+    b, c, h, w = x.shape
+    group = min(b, group_size)
+    y = x.reshape(group, -1, num_feat, c // num_feat, h, w)
+    std = torch.sqrt(y.var(dim=0, unbiased=False) + 1e-8)
+    std = std.mean(dim=(2, 3, 4), keepdim=True).squeeze(2)      # (B/g, nf, 1, 1)
+    return torch.cat([x, std.repeat(group, 1, h, w)], dim=1)
+
+
+class Discriminator(nn.Module):
+    """The reference's StyleGAN2 discriminator (``convs``, ``final_conv``,
+    ``final_linear``)."""
+
+    def __init__(self, size: int = 256, channel_multiplier: int = 2):
+        super().__init__()
+        channels = channel_map(channel_multiplier)
+        self.size = size
+        self.convs = nn.Sequential(*_res_trunk(size, channels))
+        self.final_conv = ConvLayer(channels[4] + 1, channels[4], 3)
+        self.final_linear = nn.Sequential(
+            EqualLinear(channels[4] * 16, channels[4], activation=True),
+            EqualLinear(channels[4], 1))
+
+    def forward(self, x):
+        return discriminator_forward(self, x)
+
+
+def discriminator_forward(d: Discriminator, x: torch.Tensor) -> torch.Tensor:
+    """x (B, size, size, 3) NHWC in [-1, 1] → logits (B, 1). The flatten
+    before ``final_linear`` is NCHW's, as the reference's."""
+    out = d.convs(x.permute(0, 3, 1, 2).contiguous())
+    out = d.final_conv(minibatch_stddev(out))
+    return d.final_linear(out.reshape(out.shape[0], -1))
+
+
+WPLUS_CHANNELS = channel_map(1)
+
+
+class WPlusEncoder(nn.Module):
+    """The W+ ResNet encoder (``model.py:673-710``, unused by the
+    pipeline): the discriminator's trunk at channel multiplier 1, then a
+    4×4 equalized conv to n_latent·w_dim (``convs.{last}``)."""
+
+    def __init__(self, size: int = 256, w_dim: int = 512):
+        super().__init__()
+        self.n_latents, self.w_dim = n_latent_for(size), w_dim
+        convs = _res_trunk(size, WPLUS_CHANNELS)
+        convs.append(EqualConv2d(WPLUS_CHANNELS[4], self.n_latents * w_dim, 4, bias=False))
+        self.convs = nn.Sequential(*convs)
+
+    def forward(self, x):
+        return wplus_encoder_forward(self, x)
+
+
+def wplus_encoder_forward(e: WPlusEncoder, x: torch.Tensor) -> torch.Tensor:
+    """x (B, size, size, 3) NHWC → W+ (B, n_latent, w_dim)."""
+    return e.convs(x.permute(0, 3, 1, 2).contiguous()).reshape(x.shape[0], e.n_latents,
+                                                               e.w_dim)

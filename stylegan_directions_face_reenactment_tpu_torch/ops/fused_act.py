@@ -19,13 +19,17 @@ PyTorch would make three passes (add, activation, gain); the source
 (``csrc/fused_bias_act.cu``) says what its design does.
 
 * :func:`fused_leaky_relu_plain` is the plain PyTorch version of the
-  forward and :func:`fused_leaky_relu_bwd_plain` that of the backward;
-  :func:`fused_leaky_relu` takes the plain forward only for CPU tensors,
-  where autograd differentiates it.
+  forward and :func:`fused_leaky_relu_bwd_plain` that of the backward.
+* ``sdfr::fused_bias_act`` and ``sdfr::fused_bias_act_bwd``
+  (``fused_bias_act_op``, ``fused_bias_act_bwd_op``) are the
+  registered operators that :func:`fused_leaky_relu`, the eager paths and
+  an exported graph call: each runs its plain version on a CPU tensor and
+  its kernel on a CUDA tensor (no other device has an implementation), and
+  gives shapes alone under fake tensors (``torch.export``).
 * :func:`fused_bias_act_cuda` launches the forward and counts its launches
   in ``fused_bias_act_cuda.launches``; :func:`fused_bias_act_bwd_cuda`
   launches the backward and counts in ``fused_bias_act_bwd_cuda.launches``.
-* The backward saves only the output y and takes the mask from its sign, as
+* The forward's autograd formula saves only the output y and takes the mask from its sign, as
   the JAX package's ``_bwd_kernel`` does; the bias gradient is a PyTorch
   sum of dx over every dim but 1 (:func:`bias_grad`), as the JAX package
   sums outside its kernel.
@@ -38,9 +42,8 @@ from typing import Optional
 
 import numpy as np
 import torch
-from torch.autograd.function import once_differentiable
 
-from .kernel_build import check, load_library, on_card_of
+from .kernel_build import check, load_library, on_card_of, register_autograd, register_op
 
 DEFAULT_SLOPE = 0.2
 DEFAULT_SCALE = math.sqrt(2.0)
@@ -148,37 +151,53 @@ def fused_bias_act_bwd_cuda(g: torch.Tensor, y: torch.Tensor,
 fused_bias_act_bwd_cuda.launches = 0
 
 
-class _FusedBiasActCUDA(torch.autograd.Function):
-    """K2 forward, saving only its output; the backward is K2-bwd and, for
-    the bias, :func:`bias_grad` of its dx."""
+# --- the operators: what the eager paths and an exported graph call ----------
 
-    @staticmethod
-    def forward(ctx, x, bias, negative_slope, scale):
-        y = fused_bias_act_cuda(x, bias, negative_slope, scale)
-        ctx.save_for_backward(y)
-        ctx.negative_slope, ctx.scale = negative_slope, scale
-        ctx.bias_dtype = None if bias is None else bias.dtype
-        return y
+def _fake(x, *_):
+    return torch.empty_like(x)
 
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, grad):
-        (y,) = ctx.saved_tensors
-        dx = fused_bias_act_bwd_cuda(grad.contiguous(), y, ctx.negative_slope, ctx.scale)
-        db = bias_grad(dx).to(ctx.bias_dtype) if ctx.needs_input_grad[1] else None
-        return dx if ctx.needs_input_grad[0] else None, db, None, None
+
+# K2 as a registered operator: the plain version on the CPU, the kernel on
+# the card (fused_bias_act_cuda), shapes only under fake tensors; its
+# autograd formula is fused_bias_act_bwd and bias_grad
+fused_bias_act_op = register_op(
+    "fused_bias_act(Tensor x, Tensor? bias, float negative_slope, float scale) -> Tensor",
+    fused_leaky_relu_plain, fused_bias_act_cuda, _fake)
+# K2-bwd: dx from the forward's output y and its gradient g
+fused_bias_act_bwd_op = register_op(
+    "fused_bias_act_bwd(Tensor g, Tensor y, float negative_slope, float scale) -> Tensor",
+    fused_leaky_relu_bwd_plain, fused_bias_act_bwd_cuda, _fake)
+
+
+def _setup(ctx, inputs, output):
+    _, bias, ctx.negative_slope, ctx.scale = inputs
+    ctx.bias_dtype = None if bias is None else bias.dtype
+    ctx.save_for_backward(output)
+
+
+def _backward(ctx, grad):
+    """K2-bwd on the saved output; the bias's gradient is :func:`bias_grad`
+    of its dx."""
+    (y,) = ctx.saved_tensors
+    dx = fused_bias_act_bwd_op(grad.contiguous(), y, ctx.negative_slope, ctx.scale)
+    db = bias_grad(dx).to(ctx.bias_dtype) if ctx.needs_input_grad[1] else None
+    return dx if ctx.needs_input_grad[0] else None, db, None, None
+
+
+register_autograd(fused_bias_act_op, _backward, setup_context=_setup)
 
 
 def fused_leaky_relu(x: torch.Tensor, bias: Optional[torch.Tensor] = None,
                      negative_slope: float = DEFAULT_SLOPE,
                      scale: float = DEFAULT_SCALE) -> torch.Tensor:
-    """``leaky_relu(x + bias) * scale``, bias on dim 1: the kernel for a
-    CUDA tensor, the plain version for a CPU tensor."""
-    if x.is_cuda:
-        return _FusedBiasActCUDA.apply(x, bias, negative_slope, scale)
-    if x.device.type != "cpu":
+    """``leaky_relu(x + bias) * scale``, bias on dim 1, through the operator:
+    the kernel for a CUDA tensor (made contiguous), the plain version for a
+    CPU tensor."""
+    if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"fused_leaky_relu runs on cuda or cpu, not {x.device}")
-    return fused_leaky_relu_plain(x, bias, negative_slope, scale)
+    if x.is_cuda:
+        x = x.contiguous()
+    return fused_bias_act_op(x, bias, float(negative_slope), float(scale))
 
 
 def scaled_leaky_relu(x: torch.Tensor,

@@ -32,32 +32,38 @@ both dtypes: the JAX gate's 16 MB VMEM budget and its 8×8 floor are limits
 of the TPU and do not carry over. CPU tensors take the plain version.
 
 * :func:`fused_conv_block_plain` is the plain PyTorch version (fold → ReLU
-  → ``F.conv2d`` three times, cat, + x); :func:`fused_conv_block` takes it
-  only for CPU tensors.
+  → ``F.conv2d`` three times, cat, + x).
+* ``sdfr::fused_conv_block`` (``fused_conv_block_op``) is the
+  registered operator that :func:`fused_conv_block`, the eager paths and
+  an exported graph call, on x and the block's twelve K3Args tensors: the
+  plain version on a CPU tensor, the kernel on a CUDA tensor, shapes alone
+  under fake tensors.
 * :func:`fused_conv_block_cuda` launches the kernel and counts its launches
   in ``fused_conv_block_cuda.launches`` (one a block; the kernel runs as a
   prologue and three stage launches, each split stage with its reduce
   pass).
-* Where ``x`` or a fold or weight needs a gradient, :func:`fused_conv_block`
-  runs the kernel inside an autograd Function whose backward
-  (:func:`fused_conv_block_bwd`) recomputes the plain version from the saved
-  inputs and differentiates it, as the JAX package's custom VJP
-  (``fused_conv_block_256``'s ``_bwd``: ``jax.vjp`` of ``_reference``, no
-  Pallas call); on the card that is autograd through cuDNN. It counts its
-  calls in ``fused_conv_block_bwd.launches``.
+* The operator's autograd formula (:func:`fused_conv_block_bwd`)
+  recomputes the plain version from the saved inputs and differentiates
+  it, as the JAX package's custom VJP (``fused_conv_block_256``'s ``_bwd``:
+  ``jax.vjp`` of ``_reference``, no Pallas call); on the card that is
+  autograd through cuDNN. It counts its calls in
+  ``fused_conv_block_bwd.launches``.
+* :func:`program_args` hands a program's own K3Args (made once, among its
+  weights) to FAN's blocks, on every device.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import functools
 import weakref
-from typing import NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.autograd.function import once_differentiable
 
-from .kernel_build import check, load_library, on_card_of
+from .kernel_build import check, load_library, on_card_of, register_autograd, register_op
 
 CHANNELS = 256
 _ENTRY = {torch.float32: "fused_conv_block_f32", torch.bfloat16: "fused_conv_block_bf16"}
@@ -251,11 +257,9 @@ def scratch_layout(batch: int, h: int, w: int, dtype: torch.dtype) -> Tuple[int,
 
 
 class _Launch(NamedTuple):
-    """A checked K3 launch for one (args, input shape, dtype, device): the C
-    entry point, the weight and fold pointers, the scratch layout and the
-    schedule's K steps a block. ``args`` is kept so that its id stays
-    unique while the entry lives."""
-    args: K3Args
+    """A checked K3 launch for one (input shape, dtype, device, folds and
+    packed weights): the C entry point, the weight and fold pointers, the
+    scratch layout and the schedule's K steps a block."""
     fn: object
     ptrs: Tuple[int, ...]
     layout: Tuple[int, int, int]
@@ -265,20 +269,29 @@ class _Launch(NamedTuple):
 _launches: dict = {}
 
 
+def _launch_key(x: torch.Tensor, args: K3Args) -> tuple:
+    """A checked launch's key: x's shape, dtype and device, and the folds'
+    and packed weights' pointers. Each of those tensors has one shape,
+    dtype and layout for its stage (:func:`_check`), so a pointer that
+    passed with this x passes again."""
+    return (x.shape, x.dtype, x.device) + tuple(t.data_ptr() for t in args.inv + args.off
+                                                 + args.wk)
+
+
 def _launch_for(x: torch.Tensor, args: K3Args, keep: bool) -> _Launch:
-    key = (id(args), x.shape, x.dtype, x.device)
+    key = _launch_key(x, args)
     hit = _launches.get(key)
-    if hit is not None and hit.args is args:
+    if hit is not None:
         return hit
     _check(x, args)
     b, _, h, w = x.shape
     ptrs = []
     for k in range(3):
         ptrs += [args.inv[k].data_ptr(), args.off[k].data_ptr(), args.wk[k].data_ptr()]
-    hit = _Launch(args, getattr(load_library(), _ENTRY[x.dtype]), tuple(ptrs),
+    hit = _Launch(getattr(load_library(), _ENTRY[x.dtype]), tuple(ptrs),
                   scratch_layout(b, h, w, x.dtype), schedule(b, h, w, x.dtype).kchunk)
     if keep:
-        if len(_launches) >= 1024:     # args of blocks whose weights changed
+        if len(_launches) >= 1024:     # folds of blocks whose weights changed
             _launches.clear()
         _launches[key] = hit
     return hit
@@ -286,10 +299,10 @@ def _launch_for(x: torch.Tensor, args: K3Args, keep: bool) -> _Launch:
 
 def fused_conv_block_cuda(x: torch.Tensor, args: K3Args, keep: bool = True) -> torch.Tensor:
     """Launch K3 on a contiguous (B, 256, H, W) CUDA tensor (f32 or bf16).
-    The checks of ``args`` run on the first call of a shape; a call then
-    allocates the output and the scratch and makes one C call. ``keep``
-    False checks the args anew and keeps no entry for them: args built
-    for one autograd call."""
+    The checks of ``args`` run on the first call of a shape and set of
+    pointers; a call then allocates the output and the scratch and makes
+    one C call. ``keep`` False checks the args anew and keeps no entry for
+    them: args built for one autograd call."""
     if not x.is_contiguous():
         raise ValueError("fused_conv_block_cuda takes a contiguous NCHW tensor")
     run = _launch_for(x, args, keep)
@@ -331,43 +344,90 @@ def fused_conv_block_bwd(grad: torch.Tensor, x: torch.Tensor, args: K3Args,
 fused_conv_block_bwd.launches = 0
 
 
-class _FusedConvBlockCUDA(torch.autograd.Function):
-    """K3 forward; the backward is :func:`fused_conv_block_bwd`. Inputs: x,
-    the block's K3Args, then its three scales, offsets and weights again as
-    tensors, so that autograd sees them (the packed weights ``wk`` take no
-    gradient of their own: theirs reaches ``w``)."""
+# --- the operator: what the eager paths and an exported graph call -----------
 
-    @staticmethod
-    def forward(ctx, x, args, *tensors):
-        ctx.save_for_backward(x, *tensors)
-        ctx.wk = args.wk
-        return fused_conv_block_cuda(x, args, keep=False)
+def _args_of(t) -> K3Args:
+    return K3Args(tuple(t[0:3]), tuple(t[3:6]), tuple(t[6:9]), tuple(t[9:12]))
 
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, grad):
-        x, *t = ctx.saved_tensors
-        args = K3Args(tuple(t[0:3]), tuple(t[3:6]), tuple(t[6:9]), ctx.wk)
-        needs = (ctx.needs_input_grad[0],) + ctx.needs_input_grad[2:]
-        grads = fused_conv_block_bwd(grad.contiguous(), x, args, needs)
-        return (grads[0], None) + grads[1:]
+
+def _plain_op(x, *tensors):
+    return fused_conv_block_plain(x, _args_of(tensors))
+
+
+def _cuda_op(x, *tensors):
+    # args that need a gradient are built anew each call: check, keep nothing
+    keep = not (x.requires_grad or any(t.requires_grad for t in tensors))
+    return fused_conv_block_cuda(x, _args_of(tensors), keep=keep)
+
+
+def _fake_op(x, *tensors):
+    return torch.empty_like(x)
+
+
+# K3 as a registered operator on x and a block's K3Args (the three folds'
+# scales and offsets, the OIHW weights and the kernel's packed weights): the
+# plain version on the CPU (from ``w``), the kernel on the card (from
+# ``wk``), shapes only under fake tensors. Its autograd formula is
+# fused_conv_block_bwd (no gradient reaches ``wk``: theirs reaches ``w``).
+fused_conv_block_op = register_op(
+    "fused_conv_block(Tensor x, Tensor inv1, Tensor inv2, Tensor inv3, Tensor off1, "
+    "Tensor off2, Tensor off3, Tensor w1, Tensor w2, Tensor w3, Tensor wk1, Tensor wk2, "
+    "Tensor wk3) -> Tensor", _plain_op, _cuda_op, _fake_op)
+
+
+def _setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs[:10])
+    ctx.wk = inputs[10:]
+
+
+def _backward(ctx, grad):
+    x, *t = ctx.saved_tensors
+    args = K3Args(tuple(t[0:3]), tuple(t[3:6]), tuple(t[6:9]), tuple(ctx.wk))
+    grads = fused_conv_block_bwd(grad.contiguous(), x, args, tuple(ctx.needs_input_grad[:10]))
+    return grads + (None, None, None)
+
+
+register_autograd(fused_conv_block_op, _backward, setup_context=_setup)
 
 
 def fused_conv_block(x: torch.Tensor, args: K3Args) -> torch.Tensor:
-    """The block: the kernel for a CUDA tensor (inside an autograd Function
-    when a gradient is wanted), the plain version for a CPU tensor."""
+    """The block through the operator: the kernel for a CUDA tensor, the
+    plain version for a CPU tensor."""
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"fused_conv_block runs on cuda or cpu, not {x.device}")
     if x.is_cuda:
         x = x.contiguous()
-        if torch.is_grad_enabled() and (x.requires_grad or any(
-                t.requires_grad for t in args.inv + args.off + args.w)):
-            return _FusedConvBlockCUDA.apply(x, args, *args.inv, *args.off, *args.w)
-        return fused_conv_block_cuda(x, args)
-    if x.device.type != "cpu":
-        raise ValueError(f"fused_conv_block runs on cuda or cpu, not {x.device}")
-    return fused_conv_block_plain(x, args)
+    return fused_conv_block_op(x, *args.inv, *args.off, *args.w, *args.wk)
 
 
 def conv_block_fused(p, x: torch.Tensor) -> torch.Tensor:
     """Drop-in for ``models/face/fan.py::conv_block`` on a channels-equal
     256-channel ConvBlock ``p``."""
     return fused_conv_block(x, block_args(p, x.dtype))
+
+
+# --- a program's folds and packed weights --------------------------------------
+
+_program_args: contextvars.ContextVar = contextvars.ContextVar("k3_program_args",
+                                                               default=None)
+
+
+@contextlib.contextmanager
+def program_args(args: Dict[object, K3Args]):
+    """Within the block, ``models/face/fan.py::conv_block`` takes each
+    ConvBlock in ``args`` through the operator with the K3Args given, on
+    every device: a program (``pipeline/reenactment.py::
+    make_reenact_program``) carries its blocks' folds and packed weights
+    among its weights, made once, so that neither an exported graph nor a
+    call repacks them."""
+    token = _program_args.set(args)
+    try:
+        yield
+    finally:
+        _program_args.reset(token)
+
+
+def args_in_program(p) -> Optional[K3Args]:
+    """ConvBlock ``p``'s K3Args in the current program, or None."""
+    args = _program_args.get()
+    return None if args is None else args.get(p)

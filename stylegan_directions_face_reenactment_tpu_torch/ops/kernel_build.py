@@ -7,6 +7,12 @@ into ``build/kernels/`` beside the package, named by a hash of the sources
 and flags, so an edited source is rebuilt and an unchanged one is reused.
 Nothing is built when this module is imported: the first kernel launch, or
 :func:`load_library`, builds.
+
+Each kernel is launched by the CUDA implementation of an operator registered
+with ``torch.library`` under :data:`NAMESPACE` (``ops/fused_act.py``,
+``ops/upfirdn2d_kernel.py``, ``ops/fused_conv_block.py``), so that a graph
+exported with ``torch.export`` names it, and fake tensors never reach a
+``ctypes`` call.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from typing import Dict, List
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
+NAMESPACE = "sdfr"     # the operators' namespace: torch.ops.sdfr.<name>
 SOURCES = ("upfirdn2d.cu", "fused_bias_act.cu", "fused_conv_block.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -153,6 +160,34 @@ def on_card_of(x):
     if x.device.index is None or x.device.index == torch.cuda.current_device():
         return contextlib.nullcontext()
     return torch.cuda.device(x.device)
+
+
+_LIB = None
+
+
+def register_op(schema: str, plain, cuda, fake):
+    """Define the operator ``sdfr::<schema>`` with ``plain`` (the plain
+    version) as its CPU kernel, ``cuda`` (the launch) as its CUDA kernel and
+    ``fake`` for fake tensors, and return its overload. The kernels go to
+    the dispatcher directly: ``torch.library.custom_op``'s wrappers check
+    every input's storage for aliasing on each call, which cost K3, with 13
+    tensors, tens of µs of host time a call."""
+    import torch
+    global _LIB
+    if _LIB is None:
+        _LIB = torch.library.Library(NAMESPACE, "FRAGMENT")
+    name = schema.split("(", 1)[0]
+    _LIB.define(schema)
+    _LIB.impl(name, plain, "CPU")
+    _LIB.impl(name, cuda, "CUDA")
+    torch.library.register_fake(f"{NAMESPACE}::{name}", fake, lib=_LIB)
+    return getattr(getattr(torch.ops, NAMESPACE), name).default
+
+
+def register_autograd(op, backward, setup_context) -> None:
+    """The operator's autograd formula (``torch.library.register_autograd``)."""
+    import torch
+    torch.library.register_autograd(op, backward, setup_context=setup_context, lib=_LIB)
 
 
 def check(status: int, what: str) -> None:

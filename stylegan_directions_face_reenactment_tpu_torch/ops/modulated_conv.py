@@ -29,18 +29,18 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from .upfirdn2d import blur, make_kernel
+from .upfirdn2d import blur, kernel_array
 
 DEFAULT_BLUR = (1, 3, 3, 1)
 
 
 @functools.lru_cache(maxsize=None)
-def _blur_taps(blur_kernel: Tuple[int, ...], gain: float) -> torch.Tensor:
-    """The blur's taps, made once per (taps, gain): the same tensor every
-    call, so K1's launch plan is found without converting the taps. Made
-    outside inference mode, so that a later call with grad on may save it."""
-    with torch.inference_mode(False):
-        return make_kernel(blur_kernel, gain=gain)
+def _blur_taps(blur_kernel: Tuple[int, ...], gain: float):
+    """The blur's taps as K1's operator takes them (values and shape), made
+    once per (taps, gain) from numpy, so that no call converts a tensor
+    and a traced program (``torch.export``) holds them as constants."""
+    from .upfirdn2d_kernel import taps_of
+    return taps_of(kernel_array(blur_kernel, gain=gain))
 
 
 def modulation_demod(weight: torch.Tensor, style: torch.Tensor,

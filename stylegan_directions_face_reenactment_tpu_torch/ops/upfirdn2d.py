@@ -30,15 +30,20 @@ import torch.nn.functional as F
 Pad = Union[Tuple[int, int], Tuple[int, int, int, int]]
 
 
-def make_kernel(k: Sequence[float], gain: float = 1.0) -> torch.Tensor:
+def kernel_array(k: Sequence[float], gain: float = 1.0) -> np.ndarray:
     """Normalized 2-D FIR kernel from a 1-D or 2-D tap list: the outer
     product of a 1-D taps vector, normalized to sum 1, times ``gain`` (such
-    as ``factor**2`` for upsampling filters). A float32 CPU tensor."""
+    as ``factor**2`` for upsampling filters). A float32 numpy array."""
     k = np.asarray(k, dtype=np.float32)
     if k.ndim == 1:
         k = np.outer(k, k)
     k = k / k.sum()
-    return torch.from_numpy((k * gain).astype(np.float32))
+    return (k * gain).astype(np.float32)
+
+
+def make_kernel(k: Sequence[float], gain: float = 1.0) -> torch.Tensor:
+    """:func:`kernel_array` as a float32 CPU tensor."""
+    return torch.from_numpy(kernel_array(k, gain))
 
 
 def _normalize_updown(v) -> Tuple[int, int]:
@@ -98,11 +103,13 @@ def upfirdn2d(x: torch.Tensor, kernel, up=1, down=1,
 # StyleGAN2 resampling wrappers (pad arithmetic of the reference model.py)
 # ---------------------------------------------------------------------------
 
-def upsample2d(x: torch.Tensor, kernel: torch.Tensor, factor: int = 2) -> torch.Tensor:
-    """``factor``x upsampling with a FIR filter; ``kernel`` already holds
-    the ``factor**2`` gain (:func:`make_kernel`)."""
-    from .upfirdn2d_kernel import upfirdn2d_fir
-    p = kernel.shape[0] - factor
+def upsample2d(x: torch.Tensor, kernel, factor: int = 2) -> torch.Tensor:
+    """``factor``x upsampling with a FIR filter; ``kernel`` (a tensor, or
+    taps as ``upfirdn2d_kernel.taps_of`` gives them) already holds the
+    ``factor**2`` gain (:func:`make_kernel`)."""
+    from .upfirdn2d_kernel import taps_of, upfirdn2d_fir
+    kernel = taps_of(kernel)
+    p = kernel[1][0] - factor
     return upfirdn2d_fir(x, kernel, factor, ((p + 1) // 2 + factor - 1, p // 2))
 
 
@@ -113,7 +120,8 @@ def downsample2d(x: torch.Tensor, kernel: torch.Tensor, factor: int = 2) -> torc
     return upfirdn2d(x, kernel, up=1, down=factor, pad=((p + 1) // 2, p // 2))
 
 
-def blur(x: torch.Tensor, kernel: torch.Tensor, pad: Tuple[int, int]) -> torch.Tensor:
-    """Plain FIR blur with an explicit pad."""
+def blur(x: torch.Tensor, kernel, pad: Tuple[int, int]) -> torch.Tensor:
+    """FIR blur with an explicit pad (K1 at up 1): ``kernel`` a tensor, or
+    taps as ``upfirdn2d_kernel.taps_of`` gives them."""
     from .upfirdn2d_kernel import upfirdn2d_fir
     return upfirdn2d_fir(x, kernel, 1, (int(pad[0]), int(pad[1])))

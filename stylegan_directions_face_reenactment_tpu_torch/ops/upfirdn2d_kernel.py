@@ -26,8 +26,13 @@ the kernel's thread mapping on it).
 
 * :func:`upfirdn2d_plain` is the plain PyTorch version of the same function
   (``ops/upfirdn2d.py::upfirdn2d``), and :func:`upfirdn2d_backward` the
-  plain version of the backward; :func:`upfirdn2d_fir` takes the plain
-  version only for CPU tensors, where autograd differentiates it.
+  plain version of the backward.
+* ``sdfr::upfirdn2d`` and ``sdfr::upfirdn2d_bwd`` (``upfirdn2d_op``,
+  ``upfirdn2d_bwd_op``) are the registered operators that
+  :func:`upfirdn2d_fir`, the eager paths and an exported graph call: the
+  taps travel as a list of floats and their shape (:func:`taps_of`), each
+  operator runs its plain version on a CPU tensor and its kernel on a
+  CUDA tensor, and gives shapes alone under fake tensors.
 * :func:`upfirdn2d_cuda` launches the forward and counts its launches in
   ``upfirdn2d_cuda.launches``; :func:`upfirdn2d_bwd_cuda` launches the
   backward and counts in ``upfirdn2d_bwd_cuda.launches``, of which
@@ -37,13 +42,12 @@ the kernel's thread mapping on it).
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, NamedTuple, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.autograd.function import once_differentiable
 
-from .kernel_build import check, load_library, on_card_of
+from .kernel_build import check, load_library, on_card_of, register_autograd, register_op
 from .upfirdn2d import normalize_pad, upfirdn2d as upfirdn2d_plain, upfirdn2d_output_shape
 
 MAX_TAPS = 4
@@ -70,7 +74,6 @@ class K1Plan(NamedTuple):
     params: _K1Params
     pad: Tuple[int, int, int, int]
     device_index: int
-    taps: object           # the caller's taps object, kept so that its id stays unique
 
 
 def _pow2_at_least(n: int) -> int:
@@ -102,18 +105,41 @@ def launch_shape(planes: int, out_h: int, out_w: int, up: int, down: int):
     return (bx, by, bz), grid, (rows_in, cols_in)
 
 
-def _taps_key(kernel):
-    if isinstance(kernel, torch.Tensor):   # inference tensors keep no version
-        return (id(kernel), 0 if kernel.is_inference() else kernel._version)
-    return tuple(np.asarray(kernel, np.float32).ravel().tolist()) + np.shape(kernel)
+Taps = Tuple[Tuple[float, ...], Tuple[int, int]]   # (row-major values, (kh, kw))
+_taps_seen: Dict[int, tuple] = {}
 
 
-def _taps(kernel) -> np.ndarray:
-    k = np.asarray(torch.as_tensor(kernel, dtype=torch.float32).cpu())
+def taps_of(kernel) -> Taps:
+    """The taps of ``kernel`` (a tensor, an array, nested sequences or
+    already a :data:`Taps` pair) as the operators take them: their values
+    row-major as floats and their (kh, kw). A tensor's are read once and
+    kept while it is unchanged (its id and version), so a call does not
+    convert the generator's constant taps again. A fake tensor (under
+    ``torch.export``) has no values to read: taps are constants, made
+    outside the traced program."""
+    if isinstance(kernel, tuple) and len(kernel) == 2 and isinstance(kernel[1], tuple):
+        return kernel
+    is_tensor = isinstance(kernel, torch.Tensor)
+    if is_tensor:
+        version = 0 if kernel.is_inference() else kernel._version
+        hit = _taps_seen.get(id(kernel))
+        if hit is not None and hit[0] is kernel and hit[1] == version:
+            return hit[2]
+    k = np.asarray(kernel.detach().cpu() if is_tensor else kernel, np.float32)
     if k.ndim != 2 or k.shape[0] > MAX_TAPS or k.shape[1] > MAX_TAPS:
         raise ValueError(f"upfirdn2d kernel takes at most {MAX_TAPS}x{MAX_TAPS} "
                          f"taps, got {k.shape}")
-    return k
+    taps = (tuple(float(v) for v in k.ravel()), (int(k.shape[0]), int(k.shape[1])))
+    if is_tensor:
+        if len(_taps_seen) >= 256:
+            _taps_seen.clear()
+        _taps_seen[id(kernel)] = (kernel, version, taps)
+    return taps
+
+
+def _taps(kernel) -> np.ndarray:
+    values, shape = taps_of(kernel)
+    return np.asarray(values, np.float32).reshape(shape)
 
 
 def make_plan(in_shape, dtype: torch.dtype, device: torch.device, kernel, up: int,
@@ -145,16 +171,16 @@ def make_plan(in_shape, dtype: torch.dtype, device: torch.device, kernel, up: in
                        4 * bz * rows_in * cols_in,
                        (ctypes.c_float * taps.size)(*taps.ravel().tolist()))
     return K1Plan((n, c, out_h, out_w), params, (px0, px1, py0, py1),
-                  device.index if device.index is not None else torch.cuda.current_device(),
-                  kernel)
+                  device.index if device.index is not None else torch.cuda.current_device())
 
 
 _plans: Dict[tuple, K1Plan] = {}
 
 
 def plan_for(x: torch.Tensor, kernel, up: int, down: int, pad, what: str) -> K1Plan:
-    """The cached plan for input ``x`` (made on its first call)."""
-    key = (_taps_key(kernel), up, down, tuple(pad), x.shape, x.dtype, x.device)
+    """The cached plan for input ``x`` (made on its first call); plans are
+    keyed by the taps' values, so equal taps share one."""
+    key = (taps_of(kernel), up, down, tuple(pad), x.shape, x.dtype, x.device)
     plan = _plans.get(key)
     if plan is None:
         plan = _plans[key] = make_plan(tuple(x.shape), x.dtype, x.device, kernel, up, down,
@@ -200,32 +226,44 @@ def _run(x: torch.Tensor, plan: K1Plan, what: str) -> torch.Tensor:
     return y
 
 
+def _launch(x: torch.Tensor, taps: Taps, up: int, pad) -> torch.Tensor:
+    y = _run(x, plan_for(x, taps, up, 1, pad, "upfirdn2d_cuda"), "upfirdn2d_cuda")
+    upfirdn2d_cuda.launches += 1
+    return y
+
+
 def upfirdn2d_cuda(x: torch.Tensor, kernel, up: int,
                    pad: Tuple[int, ...]) -> torch.Tensor:
     """Launch K1 (down 1) on a contiguous NCHW CUDA tensor (f32 or bf16)."""
-    y = _run(x, plan_for(x, kernel, up, 1, pad, "upfirdn2d_cuda"), "upfirdn2d_cuda")
-    upfirdn2d_cuda.launches += 1
-    return y
+    return _launch(x, taps_of(kernel), up, pad)
 
 
 upfirdn2d_cuda.launches = 0
 
 
 def _bwd_plan(grad: torch.Tensor, kernel, up: int, pad, in_shape) -> K1Plan:
-    key = ("bwd", _taps_key(kernel), up, tuple(pad), grad.shape, tuple(in_shape), grad.dtype,
+    taps = taps_of(kernel)
+    key = ("bwd", taps, up, tuple(pad), grad.shape, tuple(in_shape), grad.dtype,
            grad.device)
     plan = _plans.get(key)
     if plan is None:
-        k = _taps(kernel)
+        k = _taps(taps)
         gpad = grad_pad(k.shape, up, pad, tuple(in_shape[2:]))
         plan = make_plan(tuple(grad.shape), grad.dtype, grad.device,
                          np.ascontiguousarray(k[::-1, ::-1]), 1, up, gpad,
-                         "upfirdn2d_bwd_cuda")._replace(taps=kernel)
+                         "upfirdn2d_bwd_cuda")
         if plan.out_shape != tuple(in_shape):
             raise ValueError(f"upfirdn2d_bwd_cuda: gradient of shape {plan.out_shape} "
                              f"for an input of {tuple(in_shape)}")
         _plans[key] = plan
     return plan
+
+
+def _launch_bwd(grad: torch.Tensor, taps: Taps, up: int, pad, in_shape) -> torch.Tensor:
+    dx = _run(grad, _bwd_plan(grad, taps, up, pad, in_shape), "upfirdn2d_bwd_cuda")
+    upfirdn2d_bwd_cuda.launches += 1
+    upfirdn2d_bwd_cuda.down2_launches += int(up == 2)
+    return dx
 
 
 def upfirdn2d_bwd_cuda(grad: torch.Tensor, kernel, up: int, pad,
@@ -234,39 +272,83 @@ def upfirdn2d_bwd_cuda(grad: torch.Tensor, kernel, up: int, pad,
     the gradient with respect to x (NCHW ``in_shape``) from ``grad``, a
     contiguous CUDA tensor (f32 or bf16). :func:`upfirdn2d_backward` is its
     plain version."""
-    dx = _run(grad, _bwd_plan(grad, kernel, up, pad, in_shape), "upfirdn2d_bwd_cuda")
-    upfirdn2d_bwd_cuda.launches += 1
-    upfirdn2d_bwd_cuda.down2_launches += int(up == 2)
-    return dx
+    return _launch_bwd(grad, taps_of(kernel), up, pad, in_shape)
 
 
 upfirdn2d_bwd_cuda.launches = 0
 upfirdn2d_bwd_cuda.down2_launches = 0
 
 
-class _Upfirdn2dCUDA(torch.autograd.Function):
-    """K1 forward; its backward is K1 again (:func:`upfirdn2d_bwd_cuda`).
-    Only the input gets a gradient: the taps are constants."""
+# --- the operators: what the eager paths and an exported graph call ----------
 
-    @staticmethod
-    def forward(ctx, x, kernel, up, pad):
-        ctx.kernel, ctx.up, ctx.pad, ctx.in_shape = kernel, up, pad, tuple(x.shape)
-        return upfirdn2d_cuda(x, kernel, up, pad)
+def _taps_tensor(taps: List[float], shape: List[int]) -> torch.Tensor:
+    return torch.tensor(taps, dtype=torch.float32).reshape(shape)
 
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, grad):
-        dx = upfirdn2d_bwd_cuda(grad.contiguous(), ctx.kernel, ctx.up, ctx.pad,
-                                ctx.in_shape)
-        return dx, None, None, None
+
+def _plain_op(x, taps, taps_shape, up, pad):
+    return upfirdn2d_plain(x, _taps_tensor(taps, taps_shape), up=up, down=1, pad=tuple(pad))
+
+
+def _cuda_op(x, taps, taps_shape, up, pad):
+    return _launch(x, (tuple(taps), tuple(taps_shape)), up, tuple(pad))
+
+
+def _fake_op(x, taps, taps_shape, up, pad):
+    n, c, h, w = x.shape
+    oh, ow = upfirdn2d_output_shape(h, w, tuple(taps_shape), up=up, pad=tuple(pad))
+    return x.new_empty((n, c, oh, ow))
+
+
+def _plain_bwd_op(grad, taps, taps_shape, up, pad, in_shape):
+    # down 2 keeps every other sample: a strided view, made contiguous
+    return upfirdn2d_backward(grad, _taps_tensor(taps, taps_shape), up, tuple(pad),
+                              in_shape).contiguous()
+
+
+def _cuda_bwd_op(grad, taps, taps_shape, up, pad, in_shape):
+    return _launch_bwd(grad, (tuple(taps), tuple(taps_shape)), up, tuple(pad), in_shape)
+
+
+def _fake_bwd_op(grad, taps, taps_shape, up, pad, in_shape):
+    return grad.new_empty(in_shape)
+
+
+# K1 (down 1) as a registered operator: the plain version on the CPU, the
+# kernel on the card, shapes only under fake tensors. ``taps`` are the
+# (kh, kw) = ``taps_shape`` taps row-major, not flipped; ``pad`` (p0, p1) or
+# (px0, px1, py0, py1). Its autograd formula is upfirdn2d_bwd.
+upfirdn2d_op = register_op(
+    "upfirdn2d(Tensor x, float[] taps, int[] taps_shape, int up, int[] pad) -> Tensor",
+    _plain_op, _cuda_op, _fake_op)
+# K1-bwd: the gradient with respect to the input (NCHW ``in_shape``) of
+# upfirdn2d(x, taps, up, pad): K1 with the flipped taps at down ``up``
+upfirdn2d_bwd_op = register_op(
+    "upfirdn2d_bwd(Tensor grad, float[] taps, int[] taps_shape, int up, int[] pad, "
+    "int[] in_shape) -> Tensor", _plain_bwd_op, _cuda_bwd_op, _fake_bwd_op)
+
+
+def _setup(ctx, inputs, output):
+    x, ctx.taps, ctx.taps_shape, ctx.up, ctx.pad = inputs
+    ctx.in_shape = list(x.shape)
+
+
+def _backward(ctx, grad):
+    """K1-bwd; only the input gets a gradient: the taps are constants."""
+    dx = upfirdn2d_bwd_op(grad.contiguous(), ctx.taps, ctx.taps_shape, ctx.up, ctx.pad,
+                          ctx.in_shape)
+    return dx, None, None, None, None
+
+
+register_autograd(upfirdn2d_op, _backward, setup_context=_setup)
 
 
 def upfirdn2d_fir(x: torch.Tensor, kernel, up: int,
                   pad: Tuple[int, ...]) -> torch.Tensor:
-    """upfirdn2d with up in {1, 2}, down 1: the kernel for a CUDA tensor,
-    the plain version for a CPU tensor."""
-    if x.is_cuda:
-        return _Upfirdn2dCUDA.apply(x, kernel, up, pad)
-    if x.device.type != "cpu":
+    """upfirdn2d with up in {1, 2}, down 1, through the operator: the kernel
+    for a CUDA tensor (made contiguous), the plain version for a CPU tensor."""
+    if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"upfirdn2d runs on cuda or cpu, not {x.device}")
-    return upfirdn2d_plain(x, kernel, up=up, down=1, pad=pad)
+    if x.is_cuda:
+        x = x.contiguous()
+    values, shape = taps_of(kernel)
+    return upfirdn2d_op(x, list(values), list(shape), int(up), [int(p) for p in pad])

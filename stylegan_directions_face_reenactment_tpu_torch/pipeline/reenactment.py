@@ -21,7 +21,7 @@ the mesh's first device.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -29,10 +29,12 @@ from ..geometry.directions import DirectionsSpec, make_shift_vector
 from ..models.deca.deca import DECA, calculate_shapemodel
 from ..models.direction_matrix import DirectionMatrix, direction_matrix_forward
 from ..models.face.cropping import landmarks_in_crop
-from ..models.face.fan import FAN
+from ..models.face.fan import FAN, ConvBlock
+from ..models.nn import fold_bn
 from ..models.face.s3fd import S3FD
 from ..models.stylegan2 import Generator
-from ..parallel.mesh import Mesh, data_parallel
+from ..ops.fused_conv_block import CHANNELS, K3Args, kernel_weight, program_args
+from ..parallel.mesh import Mesh, _to, data_parallel
 from ..utils.device import DeviceLike, resolve_device
 from .alignment import landmark_align, make_fan_align
 from .preprocess import preprocess_batch_device
@@ -243,6 +245,150 @@ def make_fused_reenact_fn(g: Generator, a: DirectionMatrix, deca: DECA,
     return fn
 
 
+def k3_blocks(fan: Optional[FAN]) -> List[ConvBlock]:
+    """FAN's channels-equal 256-channel ConvBlocks, in module order: the
+    blocks K3 takes (14 a module)."""
+    if fan is None:
+        return []
+    return [m for m in fan.modules() if isinstance(m, ConvBlock) and m.downsample is None
+            and m.bn1.num_features == CHANNELS]
+
+
+def module_state(m: Optional[torch.nn.Module]) -> Optional[Dict[str, torch.Tensor]]:
+    """``m``'s parameters and persistent buffers by state-dict name,
+    detached (they share storage with ``m``)."""
+    if m is None:
+        return None
+    return {k: v.detach() for k, v in m.state_dict(keep_vars=True).items()}
+
+
+class ReenactProgram(torch.nn.Module):
+    """The modules of one reenactment program and the constants made for it
+    once: the truncation latent and, for each of FAN's K3 blocks
+    (:func:`k3_blocks`), its three folds' scales and offsets and its packed
+    weights in the alignment dtype (``k3.b{i}_{inv,off,wk}{1,2,3}``; the
+    OIHW weights too, ``w``, where that dtype is not float32). Its forward
+    is :func:`reenact_batch` with FAN's blocks taken through K3 with those
+    constants (``ops/fused_conv_block.py::program_args``) on every device."""
+
+    def __init__(self, g: Generator, a: DirectionMatrix, deca: DECA, spec: DirectionsSpec,
+                 fan: Optional[FAN], s3fd: Optional[S3FD],
+                 truncation_latent: Optional[torch.Tensor], *, truncation: float,
+                 num_layers_shift: int, compute_dtype: torch.dtype,
+                 return_target_params: bool, reuse_landmarks: bool):
+        super().__init__()
+        self.g, self.a, self.deca, self.fan, self.s3fd = g, a, deca, fan, s3fd
+        self.register_buffer("truncation_latent", truncation_latent)
+        self.spec, self.truncation, self.num_layers_shift = spec, truncation, num_layers_shift
+        self.compute_dtype = compute_dtype
+        self.return_target_params, self.reuse_landmarks = return_target_params, reuse_landmarks
+        self.k3 = torch.nn.Module()
+        self._blocks = [] if reuse_landmarks else k3_blocks(fan)
+        dtype = torch.float32 if compute_dtype == torch.float32 else compute_dtype
+        self._own_w = dtype != torch.float32
+        with torch.no_grad():
+            for i, blk in enumerate(self._blocks):
+                for j, bn in enumerate((blk.bn1, blk.bn2, blk.bn3), 1):
+                    inv, off = fold_bn(bn, dtype)
+                    w = getattr(blk, f"conv{j}").weight.to(dtype)
+                    self.k3.register_buffer(f"b{i}_inv{j}", inv)
+                    self.k3.register_buffer(f"b{i}_off{j}", off)
+                    self.k3.register_buffer(f"b{i}_wk{j}", kernel_weight(w))
+                    if self._own_w:
+                        self.k3.register_buffer(f"b{i}_w{j}", w.clone())
+
+    def block_args(self) -> Dict[ConvBlock, K3Args]:
+        """Each K3 block's K3Args from this program's (possibly swapped)
+        tensors."""
+        k3, out = self.k3, {}
+        for i, blk in enumerate(self._blocks):
+            def get(name):
+                return tuple(getattr(k3, f"b{i}_{name}{j}") for j in (1, 2, 3))
+            w = get("w") if self._own_w else tuple(
+                getattr(blk, f"conv{j}").weight for j in (1, 2, 3))
+            out[blk] = K3Args(get("inv"), get("off"), w, get("wk"))
+        return out
+
+    def forward(self, source_code, params_source, angles_source, target_imgs,
+                target_lms=None, target_ok=None):
+        with program_args(self.block_args()):
+            return reenact_batch(
+                self.g, self.a, self.deca, self.spec, source_code, params_source,
+                angles_source, target_imgs, truncation=self.truncation,
+                truncation_latent=self.truncation_latent,
+                num_layers_shift=self.num_layers_shift, compute_dtype=self.compute_dtype,
+                fan_params=self.fan, s3fd_params=self.s3fd,
+                return_target_params=self.return_target_params,
+                target_lms=target_lms, target_ok=target_ok)
+
+    def weights(self) -> Dict[str, object]:
+        """The tree of every tensor the program reads: ``g``, ``a``,
+        ``deca``, ``fan``, ``s3fd`` (state dicts, None where absent),
+        ``truncation_latent`` and ``k3``."""
+        return {"g": module_state(self.g), "a": module_state(self.a),
+                "deca": module_state(self.deca), "fan": module_state(self.fan),
+                "s3fd": module_state(self.s3fd), "truncation_latent": self.truncation_latent,
+                "k3": module_state(self.k3)}
+
+
+def flat_weights(weights: Dict[str, object]) -> Dict[str, torch.Tensor]:
+    """A weights tree as ``torch.func.functional_call`` takes it: each
+    tensor under its dotted name in :class:`ReenactProgram`."""
+    flat = {}
+    for top, sub in weights.items():
+        if isinstance(sub, dict):
+            flat.update({f"{top}.{k}": v for k, v in sub.items()})
+        elif sub is not None:
+            flat[top] = sub
+    return flat
+
+
+def make_reenact_program(g: Generator, a: DirectionMatrix, deca: DECA,
+                         spec: DirectionsSpec, *, truncation: float = 0.7,
+                         truncation_latent: Optional[torch.Tensor] = None,
+                         num_layers_shift: int = 8,
+                         compute_dtype: torch.dtype = torch.float32,
+                         fan_params: Optional[FAN] = None,
+                         s3fd_params: Optional[S3FD] = None,
+                         return_target_params: bool = False,
+                         reuse_landmarks: bool = False,
+                         device: DeviceLike = None):
+    """The reenactment program and its weights: ``(fn, weights)``.
+
+    ``fn(weights, source_code, params_source, angles_source, target_imgs[,
+    target_lms, target_ok])`` is one program over a batch of target frames
+    (tensors on ``device``, the CUDA card by default), computing
+    :func:`reenact_batch`; ``weights`` (:meth:`ReenactProgram.weights`) is
+    the tree of every tensor it reads, passed back in as an argument, as
+    the JAX package's program takes its weights, so that a serving bundle
+    (``serving.py``) stores them apart from the exported program and can
+    swap the generator. The weights given are run as they are through
+    ``torch.func.functional_call``; the tree returned here runs the modules
+    directly. ``fn.program`` is the :class:`ReenactProgram`. The program
+    reads no tensor's value in Python, so ``torch.export`` traces it.
+    """
+    nets = (g, a, deca, fan_params, s3fd_params)
+    dev, trunc = _prepare(nets, device, truncation_latent, None)
+    prog = ReenactProgram(g, a, deca, spec, fan_params, s3fd_params, trunc,
+                          truncation=truncation, num_layers_shift=num_layers_shift,
+                          compute_dtype=compute_dtype,
+                          return_target_params=return_target_params,
+                          reuse_landmarks=reuse_landmarks).to(dev).eval()
+    own = prog.weights()
+
+    def fn(weights, source_code, params_source, angles_source, target_imgs, *extra):
+        if len(extra) != (2 if reuse_landmarks else 0):
+            raise TypeError("the program takes target_lms and target_ok after "
+                            "target_imgs with reuse_landmarks, and nothing else")
+        args = (source_code, params_source, angles_source, target_imgs) + tuple(extra)
+        if weights is own:
+            return prog(*args)
+        return torch.func.functional_call(prog, flat_weights(weights), args, strict=False)
+
+    fn.program = prog
+    return fn, own
+
+
 def make_reenact_fn(g: Generator, a: DirectionMatrix, deca: DECA,
                     spec: DirectionsSpec, *, truncation: float = 0.7,
                     truncation_latent: Optional[torch.Tensor] = None,
@@ -255,25 +401,32 @@ def make_reenact_fn(g: Generator, a: DirectionMatrix, deca: DECA,
                     device: DeviceLike = None):
     """Reenactor ``fn(source_code, params_source, angles_source,
     target_imgs[, target_lms, target_ok]) → (reenacted, latents)`` (the
-    last two with ``reuse_landmarks``) running under
-    ``torch.inference_mode()`` on ``device`` (the CUDA card by default; it
-    raises when there is none). ``fan_params`` aligns DECA with FAN on the
-    target frames, ``s3fd_params`` too with the SFD-crop → FAN chain. The
-    modules are moved onto ``device``; inputs may be numpy arrays or
-    tensors, and outputs are tensors there.
+    last two with ``reuse_landmarks``) running :func:`make_reenact_program`'s
+    program under ``torch.inference_mode()`` on ``device`` (the CUDA card by
+    default; it raises when there is none). ``fan_params`` aligns DECA with
+    FAN on the target frames, ``s3fd_params`` too with the SFD-crop → FAN
+    chain. The modules are moved onto ``device``; inputs may be numpy
+    arrays or tensors, and outputs are tensors there. With ``mesh`` the
+    weights are copied once to each of its devices.
     """
-    nets = (g, a, deca, fan_params, s3fd_params)
-    dev, trunc = _prepare(nets, device, truncation_latent, mesh)
+    dev = mesh.devices[0] if mesh is not None else resolve_device(device)
+    program, weights = make_reenact_program(
+        g, a, deca, spec, truncation=truncation, truncation_latent=truncation_latent,
+        num_layers_shift=num_layers_shift, compute_dtype=compute_dtype,
+        fan_params=fan_params, s3fd_params=s3fd_params,
+        return_target_params=return_target_params, reuse_landmarks=reuse_landmarks,
+        device=dev)
+    copies = {_placed(dev): weights}
+    for d in (mesh.devices if mesh is not None else ()):
+        if _placed(d) not in copies:
+            copies[_placed(d)] = _to(weights, d, {})
 
-    def body(target_imgs, lms, ok, g, a, deca, fan_params, s3fd_params, trunc, source_code,
-             params_source, angles_source):
-        return reenact_batch(
-            g, a, deca, spec, source_code, params_source, angles_source, target_imgs,
-            truncation=truncation, truncation_latent=trunc, num_layers_shift=num_layers_shift,
-            compute_dtype=compute_dtype, fan_params=fan_params, s3fd_params=s3fd_params,
-            return_target_params=return_target_params, target_lms=lms, target_ok=ok)
+    def body(target_imgs, lms, ok, source_code, params_source, angles_source):
+        extra = (lms, ok) if reuse_landmarks else ()
+        return program(copies[target_imgs.device], source_code, params_source,
+                       angles_source, target_imgs, *extra)
 
-    run = _over_mesh(body, mesh, nets, 3)
+    run = _over_mesh(body, mesh, (), 3)
 
     def to_dev(x, dtype=torch.float32):
         return torch.as_tensor(x, dtype=dtype, device=dev)
@@ -286,8 +439,13 @@ def make_reenact_fn(g: Generator, a: DirectionMatrix, deca: DECA,
         if reuse_landmarks:
             lms, ok = to_dev(extra[0]), to_dev(extra[1], torch.bool)
         with torch.inference_mode():
-            return run(to_dev(target_imgs), lms, ok, *nets, trunc, to_dev(source_code),
+            return run(to_dev(target_imgs), lms, ok, to_dev(source_code),
                        {k: to_dev(v) for k, v in params_source.items()},
                        to_dev(angles_source))
 
     return fn
+
+
+def _placed(device) -> torch.device:
+    """The device a tensor made on ``device`` reports (``cuda`` → ``cuda:0``)."""
+    return torch.empty(0, device=device).device

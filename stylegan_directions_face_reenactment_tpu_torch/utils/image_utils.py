@@ -28,6 +28,25 @@ def torch_range_1_to_255(x: torch.Tensor) -> torch.Tensor:
     return (torch.clamp(x, -1.0, 1.0) + 1.0) / 2.00001 * 255.0
 
 
+def torch_range_255_to_1(x):
+    """[0, 255] → [-1, 1]."""
+    return x / 127.5 - 1.0
+
+
+def image_to_tensor(img: np.ndarray) -> np.ndarray:
+    """HWC uint8 → HWC float32 in [-1, 1]."""
+    return np.asarray(img, np.float32) / 127.5 - 1.0
+
+
+def add_border(img: np.ndarray, color=(255, 0, 0), width: int = 4) -> np.ndarray:
+    """A copy of an HWC uint8 image with a ``width``-pixel border of
+    ``color`` (``image_utils.py:129-137``)."""
+    out = img.copy()
+    out[:width], out[-width:] = color, color
+    out[:, :width], out[:, -width:] = color, color
+    return out
+
+
 def tensor_to_image(x) -> np.ndarray:
     """NHWC float in [-1, 1] (one image or a batch of one) → HWC uint8,
     truncated as the reference does."""

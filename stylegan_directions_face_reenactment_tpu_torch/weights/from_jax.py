@@ -39,12 +39,14 @@ from ..losses.lpips import ALEX_LAYER_IDS, LPIPS
 from ..models.deca.deca import DECA
 from ..models.deca.flame import FLAME, synthetic_flame_params
 from ..models.direction_matrix import DirectionMatrix
-from ..models.e4e import Encoder4Editing
-from ..models.face.fan import FAN
+from ..models.e4e import (BackboneEncoderUsingLastLayerIntoW, Encoder4Editing,
+                          GradualStyleEncoder)
+from ..models.face.fan import FAN, ResNetDepth
 from ..models.face.s3fd import HEADS, NORMS, S3FD, TRUNK
 from ..models.irse import Backbone
-from ..models.stylegan2 import (ConstantInput, EqualLinear, Generator,
-                                ModulatedConv2d, NoiseBuffers)
+from ..models.stylegan2 import (ConstantInput, Discriminator, EqualConv2d,
+                                EqualLinear, Generator, ModulatedConv2d, NoiseBuffers,
+                                WPlusEncoder)
 from ..utils.device import DeviceLike, resolve_device
 
 Params = Mapping[str, Any]
@@ -234,9 +236,11 @@ def _irse_trunk(params: Params) -> Dict[str, np.ndarray]:
     return a
 
 
-def e4e_from_jax(params: Params, device: DeviceLike = None) -> Encoder4Editing:
+def e4e_from_jax(params: Params, device: DeviceLike = None,
+                 cls=Encoder4Editing) -> Encoder4Editing:
     """The JAX e4e pytree (``convert_e4e_encoder``'s or
-    ``init_e4e_encoder``'s layout) → :class:`Encoder4Editing`."""
+    ``init_e4e_encoder``'s layout) → :class:`Encoder4Editing` (or ``cls``,
+    a module of its layout)."""
     style_count = params["meta"]["style_count"]
     hwio = (3, 2, 0, 1)
     a = _irse_trunk(params)
@@ -248,9 +252,103 @@ def e4e_from_jax(params: Params, device: DeviceLike = None) -> Encoder4Editing:
         a[f"styles.{i}.linear.bias"] = _np(st["linear"]["bias"])
     for name in ("latlayer1", "latlayer2"):
         _conv_bias(a, name, params[name])
-    e = Encoder4Editing(2 ** ((style_count + 2) // 2))
+    e = cls(2 ** ((style_count + 2) // 2))
     _load(e, a)
     return e.to(resolve_device(device))
+
+
+def gradual_style_encoder_from_jax(params: Params,
+                                   device: DeviceLike = None) -> GradualStyleEncoder:
+    """The JAX ``init_gradual_style_encoder`` pytree (e4e's layout) →
+    :class:`GradualStyleEncoder`."""
+    return e4e_from_jax(params, device, cls=GradualStyleEncoder)
+
+
+def _equal_linear(a, prefix, p, in_perm=None):
+    w = _np(p["weight"])
+    if in_perm is not None:       # the JAX flatten's order → the port's (NCHW)
+        w = w.reshape((w.shape[0],) + in_perm[0]).transpose(in_perm[1]).reshape(w.shape)
+    a[f"{prefix}.weight"] = w
+    a[f"{prefix}.bias"] = _np(p["bias"])
+
+
+def backbone_encoder_into_w_from_jax(
+        params: Params, device: DeviceLike = None) -> BackboneEncoderUsingLastLayerIntoW:
+    """The JAX ``init_backbone_encoder_into_w`` pytree →
+    :class:`BackboneEncoderUsingLastLayerIntoW`."""
+    a = _irse_trunk(params)
+    _equal_linear(a, "linear", params["linear"])
+    e = BackboneEncoderUsingLastLayerIntoW()
+    _load(e, a)
+    return e.to(resolve_device(device))
+
+
+def _conv_layer(a, prefix, p):
+    """A JAX ``conv_layer`` (HWIO ``conv``, ``act_bias``) under the
+    reference's ConvLayer keys (the blur's taps are the module's own)."""
+    i = 1 if p["_meta"]["downsample"] else 0
+    a[f"{prefix}.{i}.weight"] = _np(p["conv"]["weight"], (3, 2, 0, 1))
+    if "bias" in p["conv"]:
+        a[f"{prefix}.{i}.bias"] = _np(p["conv"]["bias"])
+    if "act_bias" in p:
+        a[f"{prefix}.{i + 1}.bias"] = _np(p["act_bias"])
+
+
+def _res_trunk(a, blocks):
+    _conv_layer(a, "convs.0", blocks[0])
+    for n, blk in enumerate(blocks[1:], 1):
+        for name in ("conv1", "conv2", "skip"):
+            _conv_layer(a, f"convs.{n}.{name}", blk[name])
+
+
+def discriminator_from_jax(params: Params, channel_multiplier: int = 2,
+                           device: DeviceLike = None) -> Discriminator:
+    """The JAX ``init_discriminator`` pytree → :class:`Discriminator`.
+    ``final_linear.0`` reads the JAX package's NHWC flatten (h, w, c); its
+    input rows are reordered to the reference's NCHW flatten."""
+    size = params["meta"]["size"]
+    a: Dict[str, np.ndarray] = {}
+    _res_trunk(a, params["blocks"])
+    _conv_layer(a, "final_conv", params["final_conv"])
+    c = params["final_conv"]["act_bias"].shape[0]
+    _equal_linear(a, "final_linear.0", params["final_linear"][0],
+                  in_perm=((4, 4, c), (0, 3, 1, 2)))
+    _equal_linear(a, "final_linear.1", params["final_linear"][1])
+    d = Discriminator(size, channel_multiplier)
+    _load(d, a)
+    return d.to(resolve_device(device))
+
+
+def wplus_encoder_from_jax(params: Params, device: DeviceLike = None) -> WPlusEncoder:
+    """The JAX ``init_wplus_encoder`` pytree → :class:`WPlusEncoder`."""
+    n = len(params["blocks"])
+    a: Dict[str, np.ndarray] = {}
+    _res_trunk(a, params["blocks"])
+    a[f"convs.{n}.weight"] = _np(params["final"]["weight"], (3, 2, 0, 1))
+    e = WPlusEncoder(2 ** (n + 1), params["meta"]["w_dim"])
+    _load(e, a)
+    return e.to(resolve_device(device))
+
+
+def resnet_depth_from_jax(params: Params, device: DeviceLike = None) -> ResNetDepth:
+    """The JAX ``init_resnet_depth`` pytree → :class:`ResNetDepth`."""
+    hwio = (3, 2, 0, 1)
+    a: Dict[str, np.ndarray] = {"conv1.weight": _np(params["conv1"], hwio)}
+    _bn(a, "bn1", params["bn1"])
+    for s_i, layer in enumerate(params["layers"]):
+        for b, blk in enumerate(layer):
+            pre = f"layer{s_i + 1}.{b}"
+            for i in (1, 2, 3):
+                a[f"{pre}.conv{i}.weight"] = _np(blk[f"conv{i}"], hwio)
+                _bn(a, f"{pre}.bn{i}", blk[f"bn{i}"])
+            if "downsample" in blk:
+                a[f"{pre}.downsample.0.weight"] = _np(blk["downsample"]["conv"], hwio)
+                _bn(a, f"{pre}.downsample.1", blk["downsample"]["bn"])
+    a["fc.weight"], a["fc.bias"] = _np(params["fc"]["weight"]), _np(params["fc"]["bias"])
+    m = ResNetDepth(tuple(len(layer) for layer in params["layers"]),
+                    params["fc"]["weight"].shape[0])
+    _load(m, a)
+    return m.to(resolve_device(device))
 
 
 def id_backbone_from_jax(params: Params, device: DeviceLike = None) -> Backbone:
@@ -375,16 +473,62 @@ def init_fan(seed: int = 0, num_modules: int = 4, device: DeviceLike = None) -> 
     return fan.to(dev)
 
 
+def init_discriminator(seed: int = 0, size: int = 256, channel_multiplier: int = 2,
+                       device: DeviceLike = None) -> Discriminator:
+    """The JAX package's ``init_discriminator`` distributions: equalized
+    convs and linears N(0, 1), zero biases."""
+    return _init_equalized(Discriminator(size, channel_multiplier), seed, device)
+
+
+def init_wplus_encoder(seed: int = 0, size: int = 256, w_dim: int = 512,
+                       device: DeviceLike = None) -> WPlusEncoder:
+    """The JAX package's ``init_wplus_encoder`` distributions (N(0, 1)
+    equalized convs, zero biases)."""
+    return _init_equalized(WPlusEncoder(size, w_dim), seed, device)
+
+
+def _init_equalized(module: nn.Module, seed: int, device: DeviceLike):
+    dev = resolve_device(device)
+    rng = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (EqualConv2d, EqualLinear)):
+                m.weight.copy_(torch.randn(m.weight.shape, generator=rng))
+    return module.to(dev)
+
+
+def init_resnet_depth(seed: int = 0, layers=(3, 8, 36, 3), num_classes: int = 68,
+                      device: DeviceLike = None) -> ResNetDepth:
+    """The JAX package's ``init_resnet_depth`` distributions: convs N(0,
+    sqrt(2 / (kh·kw·out))), batch norm at identity statistics, ``fc``
+    U(±1/sqrt(2048)) with a zero bias."""
+    dev = resolve_device(device)
+    rng = torch.Generator().manual_seed(seed)
+    m = ResNetDepth(layers, num_classes)
+    with torch.no_grad():
+        for c in m.modules():
+            if isinstance(c, nn.Conv2d):
+                cout, _, kh, kw = c.weight.shape
+                c.weight.copy_(torch.randn(c.weight.shape, generator=rng)
+                               * math.sqrt(2.0 / (kh * kw * cout)))
+        lim = 1.0 / math.sqrt(m.fc.in_features)
+        m.fc.weight.copy_((torch.rand(m.fc.weight.shape, generator=rng) * 2 - 1) * lim)
+        m.fc.bias.zero_()
+    return m.to(dev)
+
+
 def init_e4e(seed: int = 0, image_resolution: int = 256,
-             device: DeviceLike = None) -> Encoder4Editing:
+             device: DeviceLike = None, cls=Encoder4Editing) -> Encoder4Editing:
     """The JAX package's ``init_e4e_encoder`` distributions: every conv
     (stem, body, SE gates, shortcuts, style heads, lateral layers) He-uniform
     U(±sqrt(6 / (in·kh·kw))) with zero biases, batch norm at identity
     statistics, PReLU slopes 0.25, equalized linears N(0, 1) with zero
-    biases."""
+    biases. ``cls``: a module of its layout (:class:`GradualStyleEncoder`),
+    or :class:`BackboneEncoderUsingLastLayerIntoW` (the same rules; it
+    takes no resolution)."""
     dev = resolve_device(device)
     rng = torch.Generator().manual_seed(seed)
-    e = Encoder4Editing(image_resolution)
+    e = (cls() if cls is BackboneEncoderUsingLastLayerIntoW else cls(image_resolution))
     with torch.no_grad():
         for m in e.modules():
             if isinstance(m, nn.Conv2d):

@@ -449,3 +449,73 @@ def test_train_step_serves_k3_from_its_launch_cache(card, monkeypatch):
     assert k3.fused_conv_block_cuda.launches - launches == 3 * 56
     assert k3.fused_conv_block_bwd.launches == bwd
     assert torch.isfinite(grads["weight"]).all() and torch.isfinite(terms["loss"])
+
+
+# --- the kernels as registered operators (sdfr::*) on the card ----------------
+
+def _op_cases(card, dtype):
+    """One call of each operator at a serving shape, with its plain version."""
+    from stylegan_directions_face_reenactment_tpu_torch.ops.fused_act import (
+        fused_bias_act_bwd_op, fused_bias_act_op)
+    from stylegan_directions_face_reenactment_tpu_torch.ops.upfirdn2d_kernel import (
+        taps_of, upfirdn2d_bwd_op, upfirdn2d_op)
+    g = torch.Generator(device=card).manual_seed(9)
+    taps, shape = (list(t) for t in taps_of(make_kernel((1, 3, 3, 1), gain=4)))
+    x1 = torch.randn(16, 3, 32, 32, generator=g, device=card).to(dtype)
+    g1 = torch.randn(1, 3, 64, 64, generator=g, device=card).to(dtype)
+    x2 = torch.randn(16, 512, 8, 8, generator=g, device=card).to(dtype)
+    b2 = torch.randn(512, generator=g, device=card)
+    y2 = fused_leaky_relu_plain(x2, b2)
+    args = _k3_args(card, dtype)
+    x3 = torch.randn(2, 256, 16, 16, generator=g, device=card).to(dtype)
+    k = make_kernel((1, 3, 3, 1), gain=4)
+    return [
+        (upfirdn2d_op, (x1, taps, shape, 2, [2, 1]), lambda: upfirdn2d(x1, k, up=2, pad=(2, 1))),
+        (upfirdn2d_bwd_op, (g1, taps, shape, 2, [2, 1], [1, 3, 32, 32]),
+         lambda: upfirdn2d_backward(g1, k, 2, (2, 1), (1, 3, 32, 32))),
+        (fused_bias_act_op, (x2, b2, 0.2, 2 ** 0.5), lambda: y2),
+        (fused_bias_act_bwd_op, (x2, y2, 0.2, 2 ** 0.5),
+         lambda: fused_leaky_relu_bwd_plain(x2, y2)),
+        (k3.fused_conv_block_op, (x3,) + args.inv + args.off + args.w + args.wk,
+         lambda: k3.fused_conv_block_plain(x3, args)),
+    ]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_operators_launch_the_kernels_on_the_card(card, dtype):
+    """Each operator's CUDA implementation is its kernel: one launch
+    counted, the plain version's values; opcheck's schema, fake and AOT
+    tests on CUDA tensors."""
+    counters = (upfirdn2d_cuda, upfirdn2d_bwd_cuda, fused_bias_act_cuda,
+                fused_bias_act_bwd_cuda, k3.fused_conv_block_cuda)
+    for (op, args, plain), counter in zip(_op_cases(card, dtype), counters):
+        before = counter.launches
+        got = op(*args)
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1, op
+        check(got, plain(), f32_scaled=op is k3.fused_conv_block_op)
+        torch.library.opcheck(op, args, test_utils=("test_schema", "test_faketensor"))
+
+
+def test_export_on_the_card_calls_the_operators(card):
+    """A block of the served program exported on the card: the graph holds
+    the operators, and the exported module launches the kernels."""
+    from stylegan_directions_face_reenactment_tpu_torch.models.stylegan2 import synthesis
+    from stylegan_directions_face_reenactment_tpu_torch.weights import init_generator
+    g = init_generator(0, 32, channel_multiplier=1, device=card)
+
+    class Synth(torch.nn.Module):
+        def forward(self, w):
+            return synthesis(g, w)
+
+    w = torch.randn(2, g.n_latent, 512, device=card)
+    with torch.no_grad():
+        ep = torch.export.export(Synth(), (w,), strict=False)
+        names = [str(n.target) for n in ep.graph.nodes]
+        assert names.count("sdfr.upfirdn2d.default") == len(upfirdn2d_calls(32, 1, 2))
+        assert names.count("sdfr.fused_bias_act.default") == len(fused_bias_act_calls(32, 1, 2))
+        before = upfirdn2d_cuda.launches
+        got = ep.module()(w)
+        torch.cuda.synchronize()
+        assert upfirdn2d_cuda.launches == before + len(upfirdn2d_calls(32, 1, 2))
+        torch.testing.assert_close(got, synthesis(g, w), rtol=0, atol=0)

@@ -84,7 +84,10 @@ def test_plan_is_cached_per_key():
     assert k1.plan_for(fake((1, 3, 8, 16)), TAPS, 2, 1, (2, 1), "t") is not a
     assert k1.plan_for(fake((1, 3, 16, 16), torch.bfloat16), TAPS, 2, 1, (2, 1),
                        "t") is not a
-    other = make_kernel((1, 3, 3, 1), gain=4)        # the same taps, another tensor
+    same = make_kernel((1, 3, 3, 1), gain=4)         # the same taps, another tensor
+    assert k1.plan_for(x, same, 2, 1, (2, 1), "t") is a           # keyed by the values
+    assert k1.plan_for(x, k1.taps_of(same), 2, 1, (2, 1), "t") is a
+    other = make_kernel((1, 2, 1), gain=4)
     assert k1.plan_for(x, other, 2, 1, (2, 1), "t") is not a
     with pytest.raises(ValueError, match="CUDA"):
         k1.make_plan((1, 3, 16, 16), torch.float32, torch.device("cpu"), TAPS, 2, 1, (2, 1))
