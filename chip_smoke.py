@@ -126,13 +126,22 @@ non-zero without printing the last line:
     regulariser on the card against the CPU, with every K1/K2 call of the
     discriminator and W+ encoder held against the plain versions.
 
-Phases 10-19 run last, so that the readings of 1-8 keep the conditions
+20. [render] (the DECA renderer group): the seeded DECA with its detail
+    branch, a texture space at the real width and FLAME's arrays over a
+    torus of FLAME's size with a seam-split atlas; ``decode_deca(use_tex=True)`` at B = 16 on 224²
+    images timed with its peak memory, launches and the rasterizer's chunk
+    (and one UV rasterization at other chunks, which must give the same
+    result), ``shape_visualization`` and ``deca_encode(with_detail=True)``
+    at B = 16, and one frame card against CPU.
+
+Phases 10-20 run last, so that the readings of 1-8 keep the conditions
 they were first recorded in.
 
 The last two lines are the kernels' numbers and ``{"ok": true, ...}``.
 ``python3 chip_smoke.py --only ddp mesh stats report`` runs phases 14-17
 alone (``ddp_cards``: [ddp] (a) and (c), for a call with four cards), and
-``--only serve heads`` phases 18-19, with no last line.
+``--only serve heads`` phases 18-19 and ``--only render`` phase 20, with no
+last line.
 """
 
 import copy
@@ -211,6 +220,17 @@ GRAD_FAN_DAMP = 0.3                     # [grad]'s FAN conv weights scaled again
 FLAME_BATCH = 16
 INVERT_IDS, INVERT_VIDEOS, INVERT_FRAMES, INVERT_BATCH = 2, 2, 8, 4
 FLAME_RTOL, FLAME_ATOL = 1e-4, 1e-5     # FLAME decode card vs CPU, atol relative to max
+# [render]: decode_deca at B = FLAME_BATCH, images 224², UV maps 256² over a
+# torus of RENDER_TORUS segments (around its axis, around its tube): FLAME's
+# 9976 faces, 5133 UV vertices (FLAME's head_template.obj has 5118); the
+# card against the CPU on RENDER_CPU_FRAMES frames at the CPU tests' limits
+# (tests/test_torch_render.py): rtol 1e-5, atol 1e-5·max, and at most
+# RENDER_MAX_FLIPS of a map's pixels past them (coverage, the pos_mask
+# threshold and winners flip on rounding); RENDER_REPS timed calls
+RENDER_IMAGE, RENDER_UV, RENDER_TORUS = 224, 256, (86, 58)
+RENDER_CPU_FRAMES, RENDER_REPS = 1, 3
+RENDER_CHUNKS = (64, 128, 256, 512)       # faces a chunk, one UV rasterization at B = 16
+RENDER_RTOL, RENDER_ATOL, RENDER_MAX_FLIPS = 1e-5, 1e-5, 0.005
 # [train]: batch of (a), (b) and the timed steps; (a)'s steps; (b)'s tree
 # (two pairs a video: 24 pairs, two steps an epoch); the timed steps
 TRAIN_BATCH, TRAIN_STEPS = 12, 4
@@ -1031,6 +1051,220 @@ def phase_flame():
     return ms
 
 
+def smooth_fields(rs, shape, n, amp):
+    """n fields over an (h, w) grid, each a product of one low sinusoid
+    along each axis, (h, w, n) float32: seeded stand-ins for a face's
+    textures and photos, which change slowly from pixel to pixel."""
+    h, w = shape
+    fx, fy = rs.uniform(0.5, 3.0, (2, n))
+    px, py = rs.uniform(0, 2 * np.pi, (2, n))
+    return (amp * np.sin(2 * np.pi * np.linspace(0, 1, h)[:, None] * fy + py)[:, None, :]
+            * np.sin(2 * np.pi * np.linspace(0, 1, w)[:, None] * fx + px)[None, :, :]
+            ).astype(np.float32)
+
+
+def render_flips(got, want):
+    """(entries past the [render] limits, entries): pixels of an NHWC map,
+    else elements."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    bad = (got - want).abs() > RENDER_ATOL * want.abs().max() + RENDER_RTOL * want.abs()
+    if bad.dim() == 4:
+        bad = bad.any(-1)
+    return int(bad.sum()), bad.numel()
+
+
+def torus_flame(rs, n_verts, n_faces, n_u=RENDER_TORUS[0], n_v=RENDER_TORUS[1]):
+    """FLAME arrays over a torus at FLAME's sizes, and its UV atlas.
+
+    The torus (major radius 50, tube 20, n_u segments around the axis, n_v
+    around the tube: n_u·n_v vertices, 2·n_u·n_v faces wound outward; the
+    rest of the ``n_verts`` vertices sit at its centre, on no face) is a
+    closed smooth surface, as a head is: its vertex normals are sums of
+    like-facing face normals, and its detail maps change slowly from texel
+    to texel (texels 0.5-1.4 apart beside displacements of at most 0.01).
+    Its atlas is the (u, v) grid split at both seams, (n_u + 1)·(n_v + 1)
+    UV vertices whose triangles tile [0.05, 0.95]² without overlapping (at
+    the UV rasterization's single depth, overlapping UV triangles would
+    tie and the rounding of their barycentric sums would pick the
+    winner); the tube's seam lies on its far side. Shape and pose blend
+    shapes × 1e-3; skinning on the global joint alone (rigid); landmarks on
+    random faces."""
+    assert 2 * n_u * n_v == n_faces and n_u * n_v <= n_verts
+    u = 2 * np.pi * np.arange(n_u) / n_u                          # around the axis z
+    v = 2 * np.pi * np.arange(n_v)[:, None] / n_v                 # around the tube
+    ring = 50.0 + 20.0 * np.sin(v) + 0 * u                        # (n_v, n_u)
+    pts = np.zeros((n_verts, 3), np.float32)
+    pts[:n_u * n_v] = np.stack([ring * np.cos(u), ring * np.sin(u), -20.0 * np.cos(v) + 0 * u],
+                               -1).reshape(-1, 3)
+    faces, uvfaces = [], []
+    for i in range(n_v):
+        for j in range(n_u):
+            a, b = i * n_u + j, i * n_u + (j + 1) % n_u
+            c, d = (i + 1) % n_v * n_u + j, (i + 1) % n_v * n_u + (j + 1) % n_u
+            ua, ub = i * (n_u + 1) + j, i * (n_u + 1) + j + 1
+            faces += [[a, b, c], [b, d, c]]
+            uvfaces += [[ua, ub, ua + n_u + 1], [ub, ub + n_u + 1, ua + n_u + 1]]
+    faces, uvfaces = np.asarray(faces, np.int64), np.asarray(uvfaces, np.int64)
+    fv = pts[faces].astype(np.float64)
+    mid = fv.mean(1)
+    core = 50.0 * mid * [1, 1, 0] / np.linalg.norm(mid[:, :2], axis=1, keepdims=True)
+    if (np.cross(fv[:, 1] - fv[:, 0], fv[:, 2] - fv[:, 0]) * (mid - core)).sum() < 0:
+        faces, uvfaces = faces[:, ::-1].copy(), uvfaces[:, ::-1].copy()
+    grid = np.array([[j / n_u, i / n_v] for i in range(n_v + 1) for j in range(n_u + 1)])
+
+    def simplex(*shape):
+        e = np.exp(rs.randn(*shape))
+        return (e / e.sum(-1, keepdims=True)).astype(np.float32)
+
+    lbs_weights = np.zeros((n_verts, 5), np.float32)
+    lbs_weights[:, 0] = 1.0
+    params = {"v_template": pts, "shapedirs": (1e-3 * rs.randn(n_verts, 3, 150)).astype(np.float32),
+              "posedirs": (1e-3 * rs.randn(36, n_verts * 3)).astype(np.float32),
+              "j_regressor": simplex(5, n_verts), "lbs_weights": lbs_weights, "faces": faces,
+              "lmk_faces_idx": rs.randint(0, n_faces, 51), "lmk_bary_coords": simplex(51, 3),
+              "dynamic_lmk_faces_idx": rs.randint(0, n_faces, (79, 17)),
+              "dynamic_lmk_bary_coords": simplex(79, 17, 3),
+              "full_lmk_faces_idx": rs.randint(0, n_faces, 68), "full_lmk_bary_coords": simplex(68, 3)}
+    return params, (0.05 + 0.9 * grid).astype(np.float32), uvfaces
+
+
+def phase_render(smi):
+    """[render]: the DECA renderer group at FLAME's full size on the card.
+    The seeded DECA with its detail branch, its FLAME arrays over a torus
+    of FLAME's 5023 vertices and 9976 faces with a seam-split atlas
+    (:func:`torus_flame`: a smooth closed surface whose UV triangles do not
+    overlap, so that card and CPU differ only by rounding, at pixels on an
+    edge or a seam), a texture space of the real width (mean 512²·3, 50
+    components, smooth seeded fields), UV maps of 256² (the dense
+    triangulation of 122,990 faces). ``deca_encode(with_detail=True)`` on 16
+    smooth seeded 224² images, then pose and camera set to seeded values
+    that keep the torus in frame (the random encoder's put it anywhere);
+    ``decode_deca(use_tex=True, draw_landmarks=False)`` timed (CUDA events,
+    median of RENDER_REPS after a warm-up), its peak memory, its launches a
+    call (torch.profiler) and the rasterizer's chunk; one UV rasterization
+    of the batch at each chunk of RENDER_CHUNKS, which must give the same
+    result; ``shape_visualization`` at B = 16; then every opdict and
+    visdict entry of the first RENDER_CPU_FRAMES frames card against CPU."""
+    from stylegan_directions_face_reenactment_tpu_torch.models.deca import (
+        deca_encode, decode_deca, shape_visualization)
+    from stylegan_directions_face_reenactment_tpu_torch.models.deca.flame import FLAME, FLAMETex
+    from stylegan_directions_face_reenactment_tpu_torch.models.deca.render import (
+        _assets as make_assets, process_uvcoords, raster_chunk, rasterize)
+    from stylegan_directions_face_reenactment_tpu_torch.weights import init_deca
+    t_phase = time.perf_counter()
+    b, size, uv = FLAME_BATCH, RENDER_IMAGE, RENDER_UV
+    rs = np.random.RandomState(80)
+    deca_cpu = init_deca(2, device="cpu", with_detail=True)
+    n_verts, n_faces = deca_cpu.flame.v_template.shape[0], deca_cpu.flame.faces.shape[0]
+    params, uvcoords, uvfaces = torus_flame(rs, n_verts, n_faces)
+    deca_cpu.flame = FLAME(params)
+    deca_cpu.flametex = FLAMETex(
+        (0.5 + smooth_fields(rs, (512, 512), 3, 0.2)).reshape(1, -1),
+        smooth_fields(rs, (512, 512), 150, 0.01).reshape(512, 512, 3, 50).reshape(-1, 50))
+    deca = copy.deepcopy(deca_cpu).cuda()
+    assets_cpu = make_assets(uvcoords, uvfaces, np.ones((uv, uv, 1), np.float32),
+                             np.zeros((uv, uv), np.float32), uv, None)
+    assets = {k: v.cuda() for k, v in assets_cpu.items()}
+    images = torch.from_numpy(np.stack([0.5 + smooth_fields(rs, (size, size), 3, 0.4)
+                                        for _ in range(b)])).cuda()
+    pose = torch.from_numpy((0.3 * rs.randn(b, 6)).astype(np.float32)).cuda()
+    cam = torch.from_numpy(np.stack([0.012 * (1 + 0.03 * rs.randn(b)), 2 * rs.randn(b),
+                                     2 * rs.randn(b)], 1).astype(np.float32)).cuda()
+    with torch.no_grad():
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        deca_encode(deca, images, with_detail=True)
+        start.record()
+        cd = deca_encode(deca, images, with_detail=True)
+        end.record()
+        torch.cuda.synchronize()
+        encode_ms = start.elapsed_time(end)
+        need(cd["detail"].shape == (b, 128) and bool(torch.isfinite(cd["detail"]).all()),
+             f"deca_encode(with_detail=True) gave detail {tuple(cd['detail'].shape)}")
+        cd.update(pose=pose, cam=cam, images=images)
+
+        def run():
+            return decode_deca(deca, cd, assets, image_size=size, uv_size=uv, use_tex=True,
+                               draw_landmarks=False)
+
+        run()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        times = []
+        for _ in range(RENDER_REPS):
+            start.record()
+            op, vis = run()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        peak = torch.cuda.max_memory_allocated()
+        launches, busy_us, wall_us = profile_request("[render]", "decode_deca at B = 16", run)
+        start.record()
+        sv = shape_visualization(deca, cd, images=images, image_size=size)
+        end.record()
+        torch.cuda.synchronize()
+        sv_ms = start.elapsed_time(end)
+        need(sv.shape == (b, size, size, 3) and bool(torch.isfinite(sv).all())
+             and float((sv - images).abs().max()) > 0.1,
+             "shape_visualization on the card rendered nothing over the images")
+        for d in (op, vis):
+            for k, v in d.items():
+                need(bool(torch.isfinite(v).all()), f"decode_deca's {k} is not finite")
+        need(op["uv_detail_normals"].shape == (b, uv, uv, 3)
+             and vis["shape_images"].shape == (b, size, size, 3)
+             and float(vis["shape_images"].max()) > 0.1,
+             "decode_deca's shapes or shape render are off")
+
+        # one UV rasterization of the batch at each chunk: the card's default
+        # (the JAX package's 256) against its neighbours, and the same result
+        # at every chunk
+        uvc = process_uvcoords(assets["uvcoords"])
+        fv, uv_pos = op["vertices"][:, deca.flame.faces], uvc[None].expand((b,) + uvc.shape)
+        sweep, outs = {}, []
+        for c in RENDER_CHUNKS:
+            start.record()
+            outs.append(rasterize(uv_pos, assets["uvfaces"], fv, uv, c))
+            end.record()
+            torch.cuda.synchronize()
+            sweep[c] = start.elapsed_time(end)
+        need(all(torch.equal(o[0], outs[0][0]) and torch.equal(o[1], outs[0][1])
+                 for o in outs[1:]), "the rasterizer's result changed with its chunk")
+        del outs, fv, uv_pos
+        card_s = time.perf_counter() - t_phase
+        n = RENDER_CPU_FRAMES
+        t0 = time.perf_counter()
+        op_c, vis_c = decode_deca(deca_cpu, {k: v[:n].cpu() for k, v in cd.items()}, assets_cpu,
+                                  image_size=size, uv_size=uv, use_tex=True, draw_landmarks=False)
+        cpu_s = time.perf_counter() - t0
+    report, ok = [], True
+    for tag, got_d, want_d in (("op", op, op_c), ("vis", vis, vis_c)):
+        need(set(got_d) == set(want_d), f"[render] {tag} keys differ")
+        for k in sorted(want_d):
+            bad, total = render_flips(got_d[k][:n], want_d[k])
+            ok &= bad <= (RENDER_MAX_FLIPS * total if want_d[k].dim() == 4 else 0)
+            report.append(f"{k} {max_err(got_d[k][:n].float().cpu(), want_d[k]):.3g} "
+                          f"({bad}/{total})")
+    ms = statistics.median(times)
+    print(f"[render] card vs CPU on {n} frames, max |card - CPU| (entries past rtol "
+          f"{RENDER_RTOL}, atol {RENDER_ATOL}·max / entries): " + ", ".join(report)
+          + f"; set-up and the card {card_s:.1f} s, the CPU's decode {cpu_s:.1f} s on "
+          f"{torch.get_num_threads()} threads")
+    need(ok, f"[render] card disagrees with the CPU past the limits (at most "
+             f"{RENDER_MAX_FLIPS} of a map's pixels, no other entry)")
+    chunks = (raster_chunk(b, size), raster_chunk(b, uv))
+    print(f"[result] [render] decode_deca at B = {b} (image {size}, UV {uv}, {n_faces} faces, "
+          f"{len(uvcoords)} UV vertices, use_tex): {ms:.3f} ms a call (median of "
+          f"{RENDER_REPS}, {min(times):.3f}-{max(times):.3f}), peak {peak} bytes "
+          f"({peak - base} above the inputs), {launches} kernel launches a call (device busy "
+          f"{busy_us / 1e3:.3f} of {wall_us / 1e3:.3f} ms under the profiler), rasterizer "
+          f"chunk {chunks[0]} faces at {size}², {chunks[1]} at {uv}² (one UV rasterization "
+          f"of the batch: " + ", ".join(f"chunk {c} {t:.3f} ms" for c, t in sweep.items())
+          + f"); deca_encode with "
+          f"detail {encode_ms:.3f} ms; shape_visualization {sv_ms:.3f} ms; phase "
+          f"{time.perf_counter() - t_phase:.1f} s on {smi}")
+    return ms
+
+
 def phase_slice():
     from stylegan_directions_face_reenactment_tpu_torch.geometry import (
         initialize_directions, make_shift_vector)
@@ -1285,6 +1519,7 @@ def profile_request(tag, label, run):
               f"({100 * us / max(busy, 1e-9):.1f} % of device time)")
     for us, key in sorted(others, reverse=True)[:4]:
         print(f"[breakdown] {tag}     other: {us / 1e3:.3f} ms {key[:100]}")
+    return n_kernels, busy, wall_us
 
 
 def build_slice2_nets(device):
@@ -3828,6 +4063,7 @@ def main():
     # slice 9, after every earlier phase, so that theirs read as they were recorded
     serve_launches, serve = phase_serve(smi)
     heads_launches = phase_heads(smi)
+    phase_render(smi)      # the renderer, last, for the same reason
     for label, res in (("slice 1, resize path", results),
                        ("slice 2, default path, 562x1000 raw frames", results2)):
         for tag, r in res.items():
@@ -3918,8 +4154,8 @@ def main():
 
 def main_only(names):
     """``python3 chip_smoke.py --only ddp [ddp_cards] [mesh] [stats]
-    [report] [serve] [heads]``: those phases alone, after the device, the
-    build and, for slice 8's, the CLI and train inputs (``ddp_cards`` is
+    [report] [serve] [heads] [render]``: those phases alone, after the
+    device, the build and, for slice 8's, the CLI and train inputs (``ddp_cards`` is
     [ddp]'s (a) and (c), the multi-card parts, for a machine with several
     cards). It prints no last line."""
     _, smi = phase_device()
@@ -3930,10 +4166,11 @@ def main_only(names):
               "ddp_cards": lambda: phase_ddp(smi, tree, parts=("a", "c")),
               "mesh": lambda: phase_mesh(smi), "stats": lambda: phase_stats(smi),
               "report": lambda: phase_report(smi, os.path.join(CLI_DIR, "targets")),
-              "serve": lambda: phase_serve(smi), "heads": lambda: phase_heads(smi)}
+              "serve": lambda: phase_serve(smi), "heads": lambda: phase_heads(smi),
+              "render": lambda: phase_render(smi)}
     need(names and all(n in phases for n in names), f"--only takes phases of {list(phases)}")
     try:
-        if set(names) - {"serve", "heads"}:     # slice 8's phases read the CLI's files
+        if set(names) - {"serve", "heads", "render"}:   # slice 8's read the CLI's files
             write_cli_inputs()
             tree = write_train_inputs()
         for n in names:

@@ -28,6 +28,7 @@ import torch
 import torch.nn as nn
 
 from ...geometry.rotations import batch_rodrigues
+from ..nn import full_f32_matmul
 
 NUM_JOINTS = 5
 PARENTS = (-1, 0, 1, 1, 1)
@@ -53,6 +54,31 @@ class FLAME(nn.Module):
             dtype = torch.int64 if k in INDEX_KEYS else torch.float32
             self.register_buffer(k, torch.as_tensor(np.array(params[k])).to(dtype),
                                  persistent=False)
+
+
+class FLAMETex(nn.Module):
+    """The texture space as non-persistent buffers: ``texture_mean``
+    (1, 512·512·3) and ``texture_basis`` (512·512·3, n_tex), float32."""
+
+    def __init__(self, texture_mean, texture_basis):
+        super().__init__()
+        self.register_buffer("texture_mean", torch.as_tensor(
+            np.array(texture_mean, np.float32)).reshape(1, -1), persistent=False)
+        self.register_buffer("texture_basis", torch.as_tensor(
+            np.array(texture_basis, np.float32)), persistent=False)
+
+
+def flametex_forward(flametex: FLAMETex, texcode: torch.Tensor) -> torch.Tensor:
+    """Texture code (B, n_tex) → (B, 256, 256, 3) NHWC albedo, channels
+    flipped as the reference's; the 512 → 256 step is ``F.interpolate``'s
+    default nearest, every other pixel (``FLAME.py:253-262``). The basis
+    sum is one float32 product (TF32 off) rather than a (B, N, n_tex)
+    temporary."""
+    with full_f32_matmul():
+        tex = flametex.texture_mean + torch.matmul(
+            texcode.to(flametex.texture_basis.dtype), flametex.texture_basis.T)
+    tex = tex.reshape(texcode.shape[0], 512, 512, 3)[:, ::2, ::2, :]
+    return torch.flip(tex, dims=(-1,))
 
 
 def blend_shapes(betas: torch.Tensor, shape_disps: torch.Tensor) -> torch.Tensor:

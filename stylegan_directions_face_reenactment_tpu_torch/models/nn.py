@@ -12,7 +12,9 @@ a bf16 input runs the net in bf16.
 The warps (:func:`warp_from_coords`, :func:`scale_translate_warp`) take
 NHWC images like the JAX package's, since they resample whole frames of 3
 channels: two dense f32 contractions, with TF32 off for them whatever the
-global setting (the JAX package asks for f32 precision there too).
+global setting (the JAX package asks for f32 precision there too). So do
+the gathers of the DECA renderer (:func:`grid_sample`, :func:`affine_warp`):
+bilinear with zero padding, every tap outside the image reading 0.
 """
 
 from __future__ import annotations
@@ -159,3 +161,40 @@ def scale_translate_warp(images: torch.Tensor, s: torch.Tensor,
     src_y = (dst_y[None, :] - ty[:, None]) / s[:, None]   # (B, oh)
     src_x = (dst_x[None, :] - tx[:, None]) / s[:, None]   # (B, ow)
     return warp_from_coords(images, src_y, src_x)
+
+
+def grid_sample(x: torch.Tensor, grid: torch.Tensor,
+                align_corners: bool = False) -> torch.Tensor:
+    """``F.grid_sample`` (bilinear, zero padding) on NHWC: x (N, H, W, C),
+    grid (N, Hg, Wg, 2) of normalized (x, y) in [-1, 1] → (N, Hg, Wg, C)."""
+    out = F.grid_sample(x.permute(0, 3, 1, 2), grid.to(x.dtype), mode="bilinear",
+                        padding_mode="zeros", align_corners=align_corners)
+    return out.permute(0, 2, 3, 1)
+
+
+def affine_warp(x: torch.Tensor, theta: torch.Tensor,
+                out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Warp an NHWC batch by per-sample affine maps from source to
+    destination pixels (kornia's ``warp_affine``): output pixel p samples
+    the source at theta⁻¹·p, bilinear with zero padding. theta (N, 2, 3) or
+    (N, 3, 3)."""
+    n = x.shape[0]
+    oh, ow = out_hw
+    theta = theta.to(device=x.device, dtype=torch.float32)
+    if theta.shape[-2:] == (2, 3):
+        bottom = theta.new_tensor([0.0, 0.0, 1.0]).expand(n, 1, 3)
+        theta = torch.cat([theta, bottom], dim=1)
+    inv = torch.linalg.inv(theta)
+    ys, xs = torch.meshgrid(torch.arange(oh, dtype=torch.float32, device=x.device),
+                            torch.arange(ow, dtype=torch.float32, device=x.device),
+                            indexing="ij")
+    dst = torch.stack([xs, ys, torch.ones_like(xs)], dim=-1)        # (oh, ow, 3)
+    with full_f32_matmul():
+        src = torch.einsum("hwk,njk->nhwj", dst, inv)               # (N, oh, ow, 3)
+    sx = src[..., 0] / src[..., 2]
+    sy = src[..., 1] / src[..., 2]
+    h, w = x.shape[1], x.shape[2]
+    # pixel coordinates → grid_sample's normalized frame at align_corners=True
+    grid = torch.stack([sx * (2.0 / max(w - 1, 1)) - 1.0,
+                        sy * (2.0 / max(h - 1, 1)) - 1.0], dim=-1)
+    return grid_sample(x, grid, align_corners=True)

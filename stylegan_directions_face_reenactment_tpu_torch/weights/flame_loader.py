@@ -16,7 +16,7 @@ import pickle
 
 import numpy as np
 
-from ..models.deca.flame import FLAME
+from ..models.deca.flame import FLAME, FLAMETex
 
 N_SHAPE = 100
 N_EXP = 50
@@ -93,6 +93,29 @@ def load_flame_params(model_path: str, lmk_embedding_path: str, n_shape: int = N
         "full_lmk_faces_idx": lk("full_lmk_faces_idx").reshape(-1),
         "full_lmk_bary_coords": lk("full_lmk_bary_coords").reshape(-1, 3),
     })
+
+
+def load_flame_tex(tex_path: str, tex_type: str = "BFM", n_tex: int = 50) -> FLAMETex:
+    """A texture-space ``.npz`` → :class:`FLAMETex` on the CPU
+    (``FLAME.py:223-252``): BFM files carry ``MU``/``PC`` (199 components,
+    0-255 scale), FLAME files ``mean``/``tex_dir`` (200 components, divided
+    by 255 here). The basis keeps its first ``n_tex`` columns (DECA's
+    ``n_tex`` 50); a basis already 2-D keeps its own width."""
+    tex_space = np.load(tex_path)
+
+    def basis_2d(arr, n_pc):
+        arr = np.asarray(arr)
+        return arr if arr.ndim == 2 else arr.reshape(-1, n_pc)
+
+    if tex_type == "BFM":
+        mean = np.asarray(tex_space["MU"]).reshape(1, -1)
+        basis = basis_2d(tex_space["PC"], 199)
+    elif tex_type == "FLAME":
+        mean = np.asarray(tex_space["mean"]).reshape(1, -1) / 255.0
+        basis = basis_2d(tex_space["tex_dir"], 200) / 255.0
+    else:
+        raise ValueError(f"unknown tex_type {tex_type!r} (BFM or FLAME)")
+    return FLAMETex(mean, basis[:, :n_tex])
 
 
 def write_flame_files(model_path: str, lmk_embedding_path: str, n_verts: int = N_VERTS,

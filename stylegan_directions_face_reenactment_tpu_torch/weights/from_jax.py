@@ -36,8 +36,8 @@ import torch
 import torch.nn as nn
 
 from ..losses.lpips import ALEX_LAYER_IDS, LPIPS
-from ..models.deca.deca import DECA
-from ..models.deca.flame import FLAME, synthetic_flame_params
+from ..models.deca.deca import DECA, DetailGenerator
+from ..models.deca.flame import FLAME, FLAMETex, synthetic_flame_params
 from ..models.direction_matrix import DirectionMatrix
 from ..models.e4e import (BackboneEncoderUsingLastLayerIntoW, Encoder4Editing,
                           GradualStyleEncoder)
@@ -137,17 +137,14 @@ def flame_from_jax(params: Params, device: DeviceLike = None) -> FLAME:
     return FLAME(params).to(resolve_device(device))
 
 
-def deca_from_jax(params: Params, device: DeviceLike = None) -> DECA:
-    """The JAX DECA bundle's ``e_flame`` encoder, and its ``flame`` model
-    when the bundle has one → :class:`DECA`."""
-    e = params["e_flame"]
+def _resnet_encoder(a, prefix, e):
     r = e["resnet"]
     hwio = (3, 2, 0, 1)
-    a: Dict[str, np.ndarray] = {"E_flame.encoder.conv1.weight": _np(r["conv1"], hwio)}
-    _bn(a, "E_flame.encoder.bn1", r["bn1"])
+    a[f"{prefix}.encoder.conv1.weight"] = _np(r["conv1"], hwio)
+    _bn(a, f"{prefix}.encoder.bn1", r["bn1"])
     for s, layer in enumerate(r["layers"]):
         for b, blk in enumerate(layer):
-            pre = f"E_flame.encoder.layer{s + 1}.{b}"
+            pre = f"{prefix}.encoder.layer{s + 1}.{b}"
             for i in (1, 2, 3):
                 a[f"{pre}.conv{i}.weight"] = _np(blk[f"conv{i}"], hwio)
                 _bn(a, f"{pre}.bn{i}", blk[f"bn{i}"])
@@ -155,9 +152,59 @@ def deca_from_jax(params: Params, device: DeviceLike = None) -> DECA:
                 a[f"{pre}.downsample.0.weight"] = _np(blk["downsample"]["conv"], hwio)
                 _bn(a, f"{pre}.downsample.1", blk["downsample"]["bn"])
     for idx, fc in ((0, "fc1"), (2, "fc2")):
-        a[f"E_flame.layers.{idx}.weight"] = _np(e[fc]["weight"])
-        a[f"E_flame.layers.{idx}.bias"] = _np(e[fc]["bias"])
-    deca = DECA(FLAME(params["flame"]) if "flame" in params else None)
+        a[f"{prefix}.layers.{idx}.weight"] = _np(e[fc]["weight"])
+        a[f"{prefix}.layers.{idx}.bias"] = _np(e[fc]["bias"])
+
+
+def detail_l1_from_jax(w: np.ndarray) -> np.ndarray:
+    """The JAX decoder's linear rows, which it reads as (8, 8, 128)
+    channel-last, reordered to the port's (128, 8, 8) channel-major view,
+    the reference's (``decoders.py``: ``out.view(B, 128, 8, 8)``). Leading
+    axis: the 8192 outputs."""
+    w = np.asarray(w, np.float32)
+    return w.reshape((8, 8, 128) + w.shape[1:]).transpose(
+        (2, 0, 1) + tuple(range(3, w.ndim + 2))).reshape(w.shape)
+
+
+def _detail_generator(a, d, prefix="D_detail."):
+    a[f"{prefix}l1.0.weight"] = detail_l1_from_jax(d["l1"]["weight"])
+    a[f"{prefix}l1.0.bias"] = detail_l1_from_jax(d["l1"]["bias"])
+    _bn(a, f"{prefix}conv_blocks.0", d["bn0"])
+    for i, (conv, bn) in enumerate(zip(d["convs"], d["bns"])):
+        a[f"{prefix}conv_blocks.{2 + 4 * i}.weight"] = _np(conv["weight"], (3, 2, 0, 1))
+        a[f"{prefix}conv_blocks.{2 + 4 * i}.bias"] = _np(conv["bias"])
+        _bn(a, f"{prefix}conv_blocks.{3 + 4 * i}", bn)
+    a[f"{prefix}conv_blocks.21.weight"] = _np(d["conv_out"]["weight"], (3, 2, 0, 1))
+    a[f"{prefix}conv_blocks.21.bias"] = _np(d["conv_out"]["bias"])
+
+
+def detail_generator_from_jax(params: Params, device: DeviceLike = None) -> DetailGenerator:
+    """The JAX displacement decoder (``init_detail_generator``'s layout) →
+    :class:`DetailGenerator`, its linear rows reordered by
+    :func:`detail_l1_from_jax`."""
+    a: Dict[str, np.ndarray] = {}
+    _detail_generator(a, params, prefix="")
+    m = DetailGenerator(latent_dim=np.shape(params["l1"]["weight"])[1],
+                        out_channels=np.shape(params["conv_out"]["weight"])[3])
+    _load(m, a)
+    return m.to(resolve_device(device))
+
+
+def deca_from_jax(params: Params, device: DeviceLike = None) -> DECA:
+    """The JAX DECA bundle → :class:`DECA`: ``e_flame``; ``e_detail`` and
+    ``d_detail`` when the bundle has both (the decoder's linear rows
+    reordered by :func:`detail_l1_from_jax`, so the two compute the same
+    map); its ``flame`` model and ``flametex`` texture space when it has
+    them."""
+    a: Dict[str, np.ndarray] = {}
+    _resnet_encoder(a, "E_flame", params["e_flame"])
+    with_detail = "e_detail" in params and "d_detail" in params
+    if with_detail:
+        _resnet_encoder(a, "E_detail", params["e_detail"])
+        _detail_generator(a, params["d_detail"])
+    tex = params.get("flametex")
+    deca = DECA(FLAME(params["flame"]) if "flame" in params else None, with_detail=with_detail,
+                flametex=FLAMETex(tex["texture_mean"], tex["texture_basis"]) if tex else None)
     _load(deca, a)
     return deca.to(resolve_device(device))
 
@@ -419,18 +466,27 @@ def init_direction_matrix(seed: int = 0, shift_dim: int = 512, input_dim: int = 
     return m.to(dev)
 
 
-def init_deca(seed: int = 0, device: DeviceLike = None) -> DECA:
+def init_deca(seed: int = 0, device: DeviceLike = None, with_detail: bool = False) -> DECA:
     """ResNet convs N(0, sqrt(2 / (kh·kw·out))), batch norm at identity
     statistics, MLP weights U(±1/sqrt(in)) with zero biases; synthetic
     FLAME at the real model's 5023 vertices and 9976 faces, from a
-    generator of its own seeded with ``seed``."""
+    generator of its own seeded with ``seed``. ``with_detail`` adds
+    ``E_detail`` and ``D_detail`` (the decoder's convs U(±1/sqrt(in·9))
+    with zero biases), drawn after ``E_flame``, whose weights it leaves as
+    they are without it."""
     dev = resolve_device(device)
     rng = torch.Generator().manual_seed(seed)
     deca = DECA(FLAME(synthetic_flame_params(torch.Generator().manual_seed(seed),
-                                             n_verts=FLAME_VERTS, n_faces=FLAME_FACES)))
+                                             n_verts=FLAME_VERTS, n_faces=FLAME_FACES)),
+                with_detail=with_detail)
+    decoder = set(deca.D_detail.modules()) if with_detail else set()
     with torch.no_grad():
         for m in deca.modules():
-            if isinstance(m, nn.Conv2d):
+            if isinstance(m, nn.Conv2d) and m in decoder:
+                lim = 1.0 / math.sqrt(m.weight[0].numel())
+                m.weight.copy_((torch.rand(m.weight.shape, generator=rng) * 2 - 1) * lim)
+                m.bias.zero_()
+            elif isinstance(m, nn.Conv2d):
                 cout, _, kh, kw = m.weight.shape
                 std = math.sqrt(2.0 / (kh * kw * cout))
                 m.weight.copy_(torch.randn(m.weight.shape, generator=rng) * std)

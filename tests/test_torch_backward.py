@@ -37,6 +37,7 @@ from stylegan_directions_face_reenactment_tpu_torch.ops.upfirdn2d import (
     make_kernel, upfirdn2d)
 from stylegan_directions_face_reenactment_tpu_torch.ops.upfirdn2d_kernel import (
     grad_pad, upfirdn2d_backward, upfirdn2d_fir)
+from torch_threads import _threads  # noqa: F401
 
 
 def nchw(a):

@@ -38,6 +38,7 @@ from stylegan_directions_face_reenactment_tpu.utils import jax_cache
 from stylegan_directions_face_reenactment_tpu_torch.cli import run_facial_editing
 
 from torch_cli_files import hand_over_trunc, point_registries, seeded_modules, write_pretrained
+from torch_threads import _threads  # noqa: F401
 
 SEED = 3
 COMMON = ["--image_resolution", "64", "--shifts_count", "1", "--directions", "0", "4"]

@@ -41,6 +41,7 @@ from stylegan_directions_face_reenactment_tpu_torch.cli.run_inference import mai
 from stylegan_directions_face_reenactment_tpu_torch.native import resize_bilinear_u8
 
 from torch_cli_files import patch_frame, point_registries, seeded_modules, write_pretrained
+from torch_threads import _threads  # noqa: F401
 
 H, W, SIDE = 128, 160, 40
 IN_FRAME = [(60, 50, 0), (56, 70, 1)]      # (top, left, seed) of the patch

@@ -26,6 +26,7 @@ from stylegan_directions_face_reenactment_tpu.utils import jax_cache
 from stylegan_directions_face_reenactment_tpu_torch.cli.invert_images import main
 
 from torch_cli_files import hand_over_trunc, point_registries, seeded_modules, write_pretrained
+from torch_threads import _threads  # noqa: F401
 
 TREE = {"id00001": ["vidA"], "id00002": ["vidB"]}
 FRAMES = 3

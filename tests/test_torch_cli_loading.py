@@ -41,6 +41,7 @@ from stylegan_directions_face_reenactment_tpu_torch.weights import init_generato
 from torch_cli_files import (FAN_MODULES, SIZE, reference_generator_sd, seeded_modules,
                              write_pretrained)
 from torch_face_zoo import statics_jit
+from torch_threads import _threads  # noqa: F401
 
 RS = np.random.RandomState(11)
 IMG256 = RS.uniform(-1, 1, (1, 256, 256, 3)).astype(np.float32)

@@ -27,6 +27,7 @@ from stylegan_directions_face_reenactment_tpu_torch.cli import parity_report as 
 
 from torch_cli_files import hand_over_trunc, point_registries, seeded_modules, write_pretrained
 from torch_face_zoo import damped_backbone
+from torch_threads import _threads  # noqa: F401
 
 REF = {"csim": 0.80, "pose": 2.0, "exp": 0.10}
 

@@ -27,6 +27,7 @@ from stylegan_directions_face_reenactment_tpu_torch.cli import extract_statistic
 
 from torch_face_zoo import statics_jit
 from torch_reenact_world import build_world, close_scaled
+from torch_threads import _threads  # noqa: F401
 
 B = 2
 

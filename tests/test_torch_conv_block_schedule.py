@@ -37,6 +37,7 @@ from stylegan_directions_face_reenactment_tpu_torch.ops.main_path import (
     fused_conv_block_calls)
 
 from torch_face_zoo import randomize_bn, to_np
+from torch_threads import _threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")

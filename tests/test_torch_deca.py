@@ -30,6 +30,7 @@ from stylegan_directions_face_reenactment_tpu_torch.models.deca import (
     calculate_shapemodel, deca_encode)
 from stylegan_directions_face_reenactment_tpu_torch.weights import (
     deca_from_jax, init_deca)
+from torch_threads import _threads  # noqa: F401
 
 
 def to_np(tree):

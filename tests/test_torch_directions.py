@@ -26,6 +26,7 @@ from stylegan_directions_face_reenactment_tpu_torch.models import (
     direction_matrix_forward)
 from stylegan_directions_face_reenactment_tpu_torch.weights import (
     direction_matrix_from_jax, init_direction_matrix as p_init_direction_matrix)
+from torch_threads import _threads  # noqa: F401
 
 
 def _coeffs(rs, b):

@@ -31,6 +31,7 @@ from stylegan_directions_face_reenactment_tpu_torch.models.e4e import TAPS, e4e_
 from stylegan_directions_face_reenactment_tpu_torch.weights import e4e_from_jax
 
 from torch_face_zoo import damped_e4e, statics_jit, to_np
+from torch_threads import _threads  # noqa: F401
 
 RES = 64
 

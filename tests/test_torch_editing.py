@@ -46,6 +46,7 @@ from stylegan_directions_face_reenactment_tpu_torch.weights import (
     direction_matrix_from_jax, generator_from_jax, init_generator)
 
 from torch_face_zoo import to_np
+from torch_threads import _threads  # noqa: F401
 
 SIZE = 64
 

@@ -48,6 +48,7 @@ from stylegan_directions_face_reenactment_tpu_torch.pipeline.alignment import (
 from stylegan_directions_face_reenactment_tpu_torch.weights import deca_from_jax, init_deca
 
 from torch_face_zoo import fan_pair, s3fd_pair, statics_jit, to_np
+from torch_threads import _threads  # noqa: F401
 
 BOOST = "conv5_3_norm_mbox_conf"
 

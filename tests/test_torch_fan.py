@@ -38,6 +38,7 @@ from stylegan_directions_face_reenactment_tpu_torch.ops.main_path import (
     fused_conv_block_calls)
 
 from torch_face_zoo import fan_pair, randomize_bn, statics_jit, to_np
+from torch_threads import _threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")

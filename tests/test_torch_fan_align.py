@@ -24,6 +24,7 @@ from stylegan_directions_face_reenactment_tpu_torch.pipeline.alignment import (
     DECA_CROP, make_fan_align)
 
 from torch_face_zoo import fan_pair, s3fd_pair, statics_jit
+from torch_threads import _threads  # noqa: F401
 
 BOOST = "conv5_3_norm_mbox_conf"
 

@@ -33,6 +33,7 @@ from stylegan_directions_face_reenactment_tpu_torch.weights import (
 
 from torch_cli_files import write_flame
 from torch_face_zoo import to_np
+from torch_threads import _threads  # noqa: F401
 
 B = 4
 GOLDEN = os.path.join(os.path.dirname(__file__), "goldens", "flame.npz")

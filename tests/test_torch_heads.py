@@ -53,10 +53,9 @@ from stylegan_directions_face_reenactment_tpu_torch.weights import (
     wplus_encoder_from_jax)
 
 from torch_face_zoo import damped_e4e, fan_pair, s3fd_pair, statics_jit, to_np
-from torch_train_world import torch_threads
+from torch_threads import _threads  # noqa: F401
 
 BOOST = "conv5_3_norm_mbox_conf"
-_threads = pytest.fixture(scope="module", autouse=True)(torch_threads)
 
 
 def close(got, want, rtol, atol_rel):

@@ -50,6 +50,7 @@ from stylegan_directions_face_reenactment_tpu_torch.utils.image_utils import (
 
 from torch_cli_files import FAN_MODULES, patch_frame, seeded_modules
 from torch_face_zoo import to_np
+from torch_threads import _threads  # noqa: F401
 
 ONE = 1.0 / 127.5 + 1e-6
 

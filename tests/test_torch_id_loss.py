@@ -30,9 +30,7 @@ from stylegan_directions_face_reenactment_tpu_torch.models.irse import backbone_
 from stylegan_directions_face_reenactment_tpu_torch.weights import id_backbone_from_jax
 
 from torch_face_zoo import damped_backbone, statics_jit, to_np
-from torch_train_world import torch_threads
-
-_threads = pytest.fixture(scope="module", autouse=True)(torch_threads)
+from torch_threads import _threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -24,6 +24,7 @@ from stylegan_directions_face_reenactment_tpu_torch.ops.upfirdn2d import (
     blur, make_kernel, upfirdn2d, upsample2d)
 from stylegan_directions_face_reenactment_tpu_torch.ops.upfirdn2d_kernel import (
     taps_of, upfirdn2d_bwd_op, upfirdn2d_fir, upfirdn2d_op)
+from torch_threads import _threads  # noqa: F401
 
 DTYPES = [torch.float32, torch.bfloat16]
 SQRT2 = math.sqrt(2.0)

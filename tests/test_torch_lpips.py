@@ -22,6 +22,7 @@ from stylegan_directions_face_reenactment_tpu_torch.losses import lpips
 from stylegan_directions_face_reenactment_tpu_torch.weights import init_lpips, lpips_from_jax
 
 from torch_face_zoo import to_np
+from torch_threads import _threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -29,6 +29,7 @@ from stylegan_directions_face_reenactment_tpu_torch.pipeline import (
 
 from torch_face_zoo import statics_jit
 from torch_reenact_world import T, build_world, close_scaled
+from torch_threads import _threads  # noqa: F401
 
 SPEC = initialize_directions("voxceleb", 15, 6.0)
 

@@ -34,6 +34,7 @@ from stylegan_directions_face_reenactment_tpu_torch.ops.fused_act import (
     fused_bias_act_cuda, fused_leaky_relu_plain)
 from stylegan_directions_face_reenactment_tpu_torch.ops.upfirdn2d_kernel import (
     upfirdn2d_cuda, upfirdn2d_fir)
+from torch_threads import _threads  # noqa: F401
 
 ATOL = 1e-5
 

@@ -55,11 +55,10 @@ from stylegan_directions_face_reenactment_tpu_torch.train import (
 from stylegan_directions_face_reenactment_tpu_torch.weights import init_direction_matrix
 
 import torch_parallel_world as pw
-from torch_train_world import N_LAT, SIZE, build_train_world, close_scaled, t, torch_threads
+from torch_threads import _threads  # noqa: F401
+from torch_train_world import N_LAT, SIZE, build_train_world, close_scaled, t
 
 N_DEV = 8
-
-_threads = pytest.fixture(scope="module", autouse=True)(torch_threads)
 
 
 def jax_devices(n):

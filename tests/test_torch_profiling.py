@@ -12,6 +12,7 @@ import torch
 from stylegan_directions_face_reenactment_tpu.utils import profiling as jprof
 
 from stylegan_directions_face_reenactment_tpu_torch.utils import StepTimer, profiling, trace
+from torch_threads import _threads  # noqa: F401
 
 
 def fake_clock(monkeypatch, step_s):

@@ -47,6 +47,7 @@ from stylegan_directions_face_reenactment_tpu_torch.weights import (
     generator_from_jax, init_generator, init_lpips, lpips_from_jax)
 
 from torch_face_zoo import statics_jit, to_np
+from torch_threads import _threads  # noqa: F401
 
 SIZE = 64
 STEPS, LR = 2, 3e-3

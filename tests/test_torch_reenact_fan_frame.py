@@ -30,6 +30,7 @@ from stylegan_directions_face_reenactment_tpu_torch.pipeline import (
 
 from torch_face_zoo import statics_jit
 from torch_reenact_world import SIZE, T, build_world, close_scaled, mean_rel
+from torch_threads import _threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -30,6 +30,7 @@ from stylegan_directions_face_reenactment_tpu_torch.models.face.s3fd import (
     s3fd_forward)
 
 from torch_face_zoo import s3fd_pair, statics_jit
+from torch_threads import _threads  # noqa: F401
 
 BOOST = "conv4_3_norm_mbox_conf"
 

@@ -39,6 +39,7 @@ from stylegan_directions_face_reenactment_tpu_torch.weights import (
 
 from torch_face_zoo import damped_e4e, statics_jit, to_np
 from torch_reenact_world import SIZE, build_world, close_scaled
+from torch_threads import _threads  # noqa: F401
 
 STEPS = 2
 

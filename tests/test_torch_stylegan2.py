@@ -33,6 +33,7 @@ from stylegan_directions_face_reenactment_tpu_torch.pipeline.synthesis import (
     generate_image, get_shifted_latent_code)
 from stylegan_directions_face_reenactment_tpu_torch.weights import (
     generator_from_jax, init_generator)
+from torch_threads import _threads  # noqa: F401
 
 SIZE = 64
 

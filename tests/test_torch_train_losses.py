@@ -31,15 +31,14 @@ from stylegan_directions_face_reenactment_tpu_torch.train import losses_stack as
 from stylegan_directions_face_reenactment_tpu_torch.utils.image_utils import torch_range_1_to_255
 
 from torch_face_zoo import statics_jit
-from torch_train_world import build_train_world, close_scaled, t, torch_threads
+from torch_threads import _threads  # noqa: F401
+from torch_train_world import build_train_world, close_scaled, t
 
 B = 30                       # the second half picks each of the 15 directions once
 LOSS_RTOL = 1e-4
 SPEC = pdir.initialize_directions("voxceleb", 15, 6.0)
 JSPEC = jdir.initialize_directions("voxceleb", 15, 6.0)
 
-
-_threads = pytest.fixture(scope="module", autouse=True)(torch_threads)
 
 
 @pytest.fixture(scope="module")

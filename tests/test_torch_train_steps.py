@@ -38,16 +38,14 @@ from stylegan_directions_face_reenactment_tpu_torch.train import steps as psteps
 from stylegan_directions_face_reenactment_tpu_torch.train.steps import Draws
 from stylegan_directions_face_reenactment_tpu_torch.weights import init_direction_matrix
 
-from torch_train_world import (DECA_SIZE, N_LAT, SIZE, build_train_world, close_scaled, t,
-                               torch_threads)
+from torch_threads import _threads  # noqa: F401
+from torch_train_world import DECA_SIZE, N_LAT, SIZE, build_train_world, close_scaled, t
 
 B = 2
 SPEC, JSPEC = initialize_directions(), j_init_dirs("voxceleb", 15, 6.0)
 COMMON = dict(batch_size=B, image_resolution=SIZE, lambda_identity=0.0, lambda_w_reg=0.5,
               deca_image_size=DECA_SIZE)
 
-
-_threads = pytest.fixture(scope="module", autouse=True)(torch_threads)
 
 
 @pytest.fixture(scope="module")

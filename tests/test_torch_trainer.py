@@ -33,12 +33,11 @@ from stylegan_directions_face_reenactment_tpu_torch.train import (
 from stylegan_directions_face_reenactment_tpu_torch.weights import init_direction_matrix
 
 from torch_face_zoo import statics_jit
-from torch_train_world import DECA_SIZE, N_LAT, SIZE, build_train_world, t, torch_threads
+from torch_threads import _threads  # noqa: F401
+from torch_train_world import DECA_SIZE, N_LAT, SIZE, build_train_world, t
 
 SPEC = initialize_directions()
 
-
-_threads = pytest.fixture(scope="module", autouse=True)(torch_threads)
 
 
 @pytest.fixture(scope="module")

@@ -21,6 +21,7 @@ from stylegan_directions_face_reenactment_tpu_torch.ops.main_path import (
     pti_backward_calls, upfirdn2d_calls)
 from stylegan_directions_face_reenactment_tpu_torch.ops.upfirdn2d import (
     make_kernel, upfirdn2d, upfirdn2d_output_shape)
+from torch_threads import _threads  # noqa: F401
 
 CARD = torch.device("cuda", 0)
 TAPS = make_kernel((1, 3, 3, 1), gain=4)

@@ -20,6 +20,7 @@ import pytest
 from stylegan_directions_face_reenactment_tpu.native import imgproc as j_imgproc
 
 from stylegan_directions_face_reenactment_tpu_torch.native import imgproc
+from torch_threads import _threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -9,7 +9,6 @@ the mean mapped W of 32 z's made with numpy. ``world["jax"]`` and
 ``world["port"]`` are the two packages' ``FrozenModels``."""
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
@@ -44,20 +43,6 @@ DECA_HEAD_SCALE = 0.1
 # DECA's input side on the resize alignment: the JAX package's knob for small
 # runs (`TrainingArguments.deca_image_size`); the fan alignments warp to 224
 DECA_SIZE = 64
-
-
-def torch_threads():
-    """Module fixture body: under pytest-xdist, torch's intra-op threads are
-    the cores over the workers (at least 1) while the module runs, so the
-    workers' convolutions do not oversubscribe the cores (the ArcFace and
-    ResNet-50 backward passes slowed some 40-fold when they did); alone, all
-    cores."""
-    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
-    before = torch.get_num_threads()
-    if workers > 1:
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // workers))
-    yield
-    torch.set_num_threads(before)
 
 
 def jax_flame(seed=3):
