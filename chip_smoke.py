@@ -214,6 +214,7 @@ CLI_TARGETS, CLI_PATCH = 32, 128        # target PNGs; side of the textured patc
 CLI_EDGE_TARGETS = (5, 21)              # targets whose patch sits on the top edge
 CLI_WINDOW = 160                        # run (d)'s targets, in-frame PNGs repeated
 CLI_MAX_DIFF = 1                        # run (a) vs the direct call, intensity units
+HOST_CROP_FRAMES, HOST_CROP_REPS = 16, 5  # [cli]'s ffhq_crop_batch against the serial loop
 GRAD_BATCH = 4                          # [grad]'s 256² frames needing a gradient
 GRAD_RTOL, GRAD_ATOL = 1e-3, 2e-3       # card vs CPU gradients, atol relative to max
 GRAD_FAN_DAMP = 0.3                     # [grad]'s FAN conv weights scaled against growth
@@ -1594,8 +1595,8 @@ def phase_slice2():
     """The default per-frame path on raw frames, float32 and bf16."""
     from stylegan_directions_face_reenactment_tpu_torch.geometry import initialize_directions
     from stylegan_directions_face_reenactment_tpu_torch.models.face import (
-        box_to_center_scale, crop_faces, detect_faces, fan_forward, ffhq_crop_device,
-        heatmaps_to_landmarks, landmarks_to_image_coords, s3fd_forward,
+        box_to_center_scale, crop_faces, crop_transform, detect_faces, fan_forward,
+        ffhq_crop_device, heatmaps_to_landmarks, landmarks_to_image_coords, s3fd_forward,
         select_reference_face)
     from stylegan_directions_face_reenactment_tpu_torch.models.stylegan2 import (
         mapping, mean_latent, n_latent_for, style_to_wplus, synthesis)
@@ -1720,6 +1721,7 @@ def phase_slice2():
         best, ok = select_reference_face(boxes.float(), valid)
         center, scale = box_to_center_scale(best)
         crops01 = crop_faces(imgs, center, scale, 256) / 255.0
+        affine = crop_transform(center, scale)
         hm = fan_forward(fan, crops01)[-1].float()
         pts = landmarks_to_image_coords(heatmaps_to_landmarks(hm), center, scale)
         crops, _ = ffhq_crop_device(imgs, pts, 256)
@@ -1739,6 +1741,9 @@ def phase_slice2():
                                             center[:2].cpu(), scale[:2].cpu())
         differ = (pts_cpu != pts[:2].cpu()).any(-1)
         explained = flips_explained(hm[:2].cpu(), hm_cpu, hm_atol)
+        affine_cpu = crop_transform(center.cpu(), scale.cpu())
+        affine_err = float(((affine.cpu() - affine_cpu).abs()
+                            / affine_cpu.abs().clamp_min(1e-30)).max())
         crops_cpu, _ = ffhq_crop_device(imgs[:2].cpu(), pts[:2].cpu(), 256)
         crop_err = float((crops_cpu - crops[:2].cpu()).abs().max())
         want_img, want_lat = reenact_batch(
@@ -1766,6 +1771,11 @@ def phase_slice2():
           f"card's crops: image {'ok' if img_ok else 'FAIL'}, latent "
           f"{'ok' if lat_ok else 'FAIL'}; planted-landmark request: "
           f"{'ok' if reuse_ok else 'FAIL'}")
+    print(f"[slice2] crop_transform of request 1's {fr0.shape[0]} FAN crops on the card "
+          f"({affine.device}, {tuple(affine.shape)}) against the CPU: max relative diff "
+          f"{affine_err:.3g} (limit 1e-6)")
+    need(affine.is_cuda and tuple(affine.shape) == (fr0.shape[0], 3, 3) and affine_err <= 1e-6,
+         "crop_transform on the card disagrees with the CPU")
     need(head_ok and hm_ok and bool((~differ | explained).all()) and crop_err <= 1.0
          and img_ok and lat_ok and reuse_ok, "the card disagrees with the CPU on slice 2")
     bf16_stages(sfd, fan, deca, (csfd, cfan, cdeca), imgs[:1], crops01[:2], crops_f[:2])
@@ -2308,6 +2318,7 @@ def phase_cli(smi):
     finally:
         cli.setup_source = real_setup
     need(results["a"]["fallback_frames"] > 0, "no frame took the host-crop fallback")
+    host_crop(targets, in_frame[:HOST_CROP_FRAMES])
 
     # run (a)'s first chunk against the fused program called directly on the
     # same frames with the set-up's outputs
@@ -2330,6 +2341,59 @@ def phase_cli(smi):
           f"{max(diffs)} intensity units (limit {CLI_MAX_DIFF})")
     need(max(diffs) <= CLI_MAX_DIFF, "the CLI's frames disagree with the direct call")
     return results, totals
+
+
+def host_crop(folder, names):
+    """``native/imgproc.py::ffhq_crop_batch`` against the serial
+    ``crop_using_landmarks`` loop on the CLI's in-frame PNGs, with landmarks
+    planted on a ring inside each frame: the same bytes, and each one's
+    median host ms of HOST_CROP_REPS calls."""
+    from PIL import Image
+
+    from stylegan_directions_face_reenactment_tpu_torch.models.face.cropping import (
+        crop_using_landmarks)
+    from stylegan_directions_face_reenactment_tpu_torch.native.imgproc import ffhq_crop_batch
+    frames = np.stack([np.asarray(Image.open(os.path.join(folder, f))) for f in names])
+    rs = np.random.RandomState(43)
+    t = np.linspace(0, 2 * np.pi, 68, endpoint=False)
+    pts = []
+    for _ in names:
+        cx, cy, r = rs.uniform(250, 750), rs.uniform(250, 320), rs.uniform(50, 100)
+        k = rs.uniform(0.6, 1.0, (2, 68))
+        pts.append(np.stack([cx + r * np.cos(t) * k[0], cy + r * np.sin(t) * k[1]], -1))
+    pts = np.float32(pts)
+
+    def batch():
+        return ffhq_crop_batch(frames, pts)
+
+    def serial():
+        return np.stack([crop_using_landmarks(f, p) for f, p in zip(frames, pts)])
+
+    ms = {}
+    for tag, fn in (("batch", batch), ("serial", serial)):
+        fn()
+        runs = []
+        for _ in range(HOST_CROP_REPS):
+            t0 = time.perf_counter()
+            out = fn()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        ms[tag] = (statistics.median(runs), min(runs), max(runs))
+        if tag == "batch":
+            crops, done = out
+        else:
+            want = out
+    diff = np.abs(crops.astype(int) - want.astype(int))
+    print(f"[cli] host crop: ffhq_crop_batch on {len(names)} in-frame frames of "
+          f"{frames.shape[1]}x{frames.shape[2]} "
+          f"{ms['batch'][0]:.3f} ms (min {ms['batch'][1]:.3f}, max {ms['batch'][2]:.3f}), "
+          f"the serial crop_using_landmarks loop {ms['serial'][0]:.3f} ms (min "
+          f"{ms['serial'][1]:.3f}, max {ms['serial'][2]:.3f}); median of {HOST_CROP_REPS} "
+          f"calls, host clock, {os.cpu_count()} host cores, torch {torch.get_num_threads()} "
+          f"intra-op threads; max |diff| {int(diff.max())} (limit 0), {int((diff > 0).sum())} "
+          f"of {diff.size} bytes differ")
+    need(bool(done.all()) and int(diff.max()) == 0,
+         "ffhq_crop_batch disagrees with the serial crop")
+    return ms
 
 
 def phase_edit(smi):

@@ -14,8 +14,8 @@ The model's arrays live in :class:`FLAME` as buffers that are not part of a
 state dict (the DECA checkpoint does not hold them): from ``generic_model.pkl``
 through ``weights/flame_loader.py``, from the JAX package's pytree through
 ``weights/from_jax.py::flame_from_jax``, or from
-:func:`synthetic_flame_params` for tests. ``flametex_forward`` waits for
-the renderer.
+:func:`synthetic_flame_params` for tests. :func:`flametex_forward`,
+below, decodes the texture space; ``render.py::decode_deca`` calls it.
 """
 
 from __future__ import annotations

@@ -166,11 +166,9 @@ def resample_u8(img: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
     return out.to(torch.uint8).numpy()
 
 
-def crop_using_landmarks(image: np.ndarray, landmarks,
-                         image_size: int = 256) -> Optional[np.ndarray]:
-    """(H, W, 3) uint8 frame and (68, 2) landmarks → (image_size,
-    image_size, 3) uint8 crop, or None for degenerate landmarks
-    (``ffhq_cropping.py:49-69``); the box math in float64 as the
+def ffhq_box(landmarks) -> Optional[Tuple[int, int, int, int]]:
+    """(68, 2) landmarks → the crop box (x1, y1, x2, y2), or None for
+    degenerate landmarks (``ffhq_cropping.py:49-57``); float64, as the
     reference's."""
     landmarks = np.asarray(landmarks, dtype=np.float64)
     center = ((landmarks.min(0) + landmarks.max(0)) / 2).round().astype(int)
@@ -179,8 +177,18 @@ def crop_using_landmarks(image: np.ndarray, landmarks,
     if size <= 0:
         return None
     center[1] -= size // 6
-    box = (int(center[0] - size), int(center[1] - size),
-           int(center[0] + size), int(center[1] + size))
+    return (int(center[0] - size), int(center[1] - size),
+            int(center[0] + size), int(center[1] + size))
+
+
+def crop_using_landmarks(image: np.ndarray, landmarks,
+                         image_size: int = 256) -> Optional[np.ndarray]:
+    """(H, W, 3) uint8 frame and (68, 2) landmarks → (image_size,
+    image_size, 3) uint8 crop, or None for degenerate landmarks
+    (``ffhq_cropping.py:49-69``)."""
+    box = ffhq_box(landmarks)
+    if box is None:
+        return None
     cropped = crop_from_bbox(np.asarray(image), box)
     if cropped.size == 0:
         return None

@@ -20,6 +20,7 @@ from .fan import (FAN, ResNetDepth, fan_forward, heatmaps_to_landmarks,
 from .s3fd import S3FD, detect_faces
 
 REFERENCE_SCALE = 195.0  # `sfd/sfd_detector.py` (face-alignment convention)
+CROP_RESOLUTION = 256.0
 
 
 def box_to_center_scale(box: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -30,6 +31,21 @@ def box_to_center_scale(box: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     cy = cy - (box[..., 3] - box[..., 1]) * 0.12
     scale = (box[..., 2] - box[..., 0] + box[..., 3] - box[..., 1]) / REFERENCE_SCALE
     return torch.stack([cx, cy], dim=-1), scale
+
+
+def crop_transform(center: torch.Tensor, scale: torch.Tensor,
+                   resolution: float = CROP_RESOLUTION) -> torch.Tensor:
+    """(B, 2) centers and (B,) scales → (B, 3, 3) src→dst affines of the
+    200·scale crop: dst = res/h·(src − center) + res/2 with h = 200·scale
+    (``fan_model/utils.py:63-97``), on the centers' device."""
+    h = 200.0 * scale
+    s = resolution / h
+    zeros, ones = torch.zeros_like(s), torch.ones_like(s)
+    tx = resolution * (-center[:, 0] / h + 0.5)
+    ty = resolution * (-center[:, 1] / h + 0.5)
+    return torch.stack([torch.stack([s, zeros, tx], dim=-1),
+                        torch.stack([zeros, s, ty], dim=-1),
+                        torch.stack([zeros, zeros, ones], dim=-1)], dim=1)
 
 
 def crop_faces(images: torch.Tensor, center: torch.Tensor, scale: torch.Tensor,

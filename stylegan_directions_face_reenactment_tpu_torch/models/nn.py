@@ -79,6 +79,10 @@ def sigmoid(x: torch.Tensor) -> torch.Tensor:
     return torch.sigmoid(x)
 
 
+def tanh(x: torch.Tensor) -> torch.Tensor:
+    return torch.tanh(x)
+
+
 def max_pool2d(x: torch.Tensor, window: int, stride: Optional[int] = None,
                padding: int = 0) -> torch.Tensor:
     return F.max_pool2d(x, window, stride or window, padding)

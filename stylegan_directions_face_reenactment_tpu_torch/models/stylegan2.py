@@ -344,6 +344,12 @@ class ConvLayer(nn.Sequential):
         super().__init__(*layers)
 
 
+def conv_layer(m: ConvLayer, x: torch.Tensor) -> torch.Tensor:
+    """A ConvLayer on NCHW x: [blur (K1) →] equalized conv → bias and
+    activation (K2), or the scaled activation without a bias."""
+    return m(x)
+
+
 class ResBlock(nn.Module):
     """conv1 (3×3) → conv2 (3×3, downsample), plus a 1×1 downsampling skip
     without activation, summed and scaled by 1/√2."""
@@ -355,7 +361,12 @@ class ResBlock(nn.Module):
         self.skip = ConvLayer(in_ch, out_ch, 1, downsample=True, activate=False, bias=False)
 
     def forward(self, x):
-        return (self.conv2(self.conv1(x)) + self.skip(x)) / math.sqrt(2.0)
+        return res_block(self, x)
+
+
+def res_block(m: ResBlock, x: torch.Tensor) -> torch.Tensor:
+    """A ResBlock on NCHW x: (conv2(conv1(x)) + skip(x)) / √2."""
+    return (conv_layer(m.conv2, conv_layer(m.conv1, x)) + conv_layer(m.skip, x)) / math.sqrt(2.0)
 
 
 def _res_trunk(size: int, channels: dict) -> List[nn.Module]:

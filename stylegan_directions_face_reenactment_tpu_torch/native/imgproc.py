@@ -1,10 +1,15 @@
 """Host image operations and video files.
 
-* :func:`resize_bilinear_u8` and :func:`from_gan_range` are PyTorch on
-  CPU tensors, with the arithmetic of the JAX package's native library
-  (``reenact_io.cpp``): the resize takes half-pixel centres, clamps at the
-  low edge and interpolates in float64; both round half up. The inverse
-  conversion is ``pipeline/preprocess.py::to_gan_range``.
+* :func:`resize_bilinear_u8`, :func:`to_gan_range` and
+  :func:`from_gan_range` are PyTorch or numpy on the CPU, with the
+  arithmetic of the JAX package's native library (``reenact_io.cpp``): the
+  resize takes half-pixel centres, clamps at the low edge and interpolates
+  in float64; it and ``from_gan_range`` round half up.
+* :func:`ffhq_crop_batch` is the FFHQ crop of in-frame boxes with the
+  contract of ``rio_ffhq_crop_batch``, one frame after another, each crop
+  made by ``models/face/cropping.py::resample_u8``. The JAX package's
+  native library spreads the frames over threads; on the H100's host eight
+  workers were slower than one loop running torch on every core.
 * :func:`extract_frames`, :func:`video_fps` and :func:`generate_video` read
   and write video with OpenCV's ``VideoCapture`` and ``VideoWriter`` (fourcc
   ``mp4v``), as the reference does (``utils_inference.py:11-58``). cv2 is
@@ -17,7 +22,6 @@ from typing import List, Tuple
 
 import numpy as np
 import torch
-
 
 def _capture(path: str):
     import cv2
@@ -109,8 +113,38 @@ def resize_bilinear_u8(batch, out_hw: Tuple[int, int]) -> np.ndarray:
     return torch.floor(v + 0.5).to(torch.uint8).numpy()
 
 
+def to_gan_range(image_uint8: np.ndarray) -> np.ndarray:
+    """uint8 → float32 in [-1, 1] (ToTensor → Normalize(.5, .5, .5),
+    ``dataloader.py:31-34``)."""
+    return np.asarray(image_uint8).astype(np.float32) / 127.5 - 1.0
+
+
 def from_gan_range(batch_f32) -> np.ndarray:
     """float32 in [-1, 1] (an array or a CPU tensor) → uint8, clipped and
     rounded half up."""
     x = torch.as_tensor(batch_f32, dtype=torch.float32)
     return torch.floor(((x + 1.0) * 127.5).clamp(0.0, 255.0) + 0.5).to(torch.uint8).numpy()
+
+
+def ffhq_crop_batch(images: np.ndarray, landmarks: np.ndarray,
+                    image_size: int = 256) -> Tuple[np.ndarray, np.ndarray]:
+    """(B, H, W, 3) uint8 frames of one shape and (B, 68, 2) landmarks →
+    (crops (B, s, s, 3) uint8, done (B,) bool): the FFHQ crop of every box
+    inside its frame. ``done[i]`` is False where the box leaves the frame
+    or the landmarks are degenerate; that crop stays zero and is the
+    caller's (``models/face/cropping.py::crop_using_landmarks``)."""
+    from ..models.face.cropping import ffhq_box, resample_u8
+    images = np.ascontiguousarray(images, np.uint8)
+    landmarks = np.asarray(landmarks, np.float32)
+    b, h, w, _ = images.shape
+    crops = np.zeros((b, image_size, image_size, 3), np.uint8)
+    done = np.zeros((b,), bool)
+    for i in range(b):
+        box = ffhq_box(landmarks[i])
+        if box is None:
+            continue
+        x1, y1, x2, y2 = box
+        if x1 >= 0 and y1 >= 0 and x2 <= w and y2 <= h:
+            crops[i] = resample_u8(images[i, y1:y2, x1:x2], (image_size, image_size))
+            done[i] = True
+    return crops, done

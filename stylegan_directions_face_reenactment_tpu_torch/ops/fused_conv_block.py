@@ -400,6 +400,12 @@ def fused_conv_block(x: torch.Tensor, args: K3Args) -> torch.Tensor:
     return fused_conv_block_op(x, *args.inv, *args.off, *args.w, *args.wk)
 
 
+def fused_conv_block_256(x, i1, f1, w1, i2, f2, w2, i3, f3, w3) -> torch.Tensor:
+    """The block on the JAX package's operands: each stage's fold (inv,
+    off) and its OIHW weight, x NCHW."""
+    return fused_conv_block(x, make_k3_args((i1, i2, i3), (f1, f2, f3), (w1, w2, w3), x.dtype))
+
+
 def conv_block_fused(p, x: torch.Tensor) -> torch.Tensor:
     """Drop-in for ``models/face/fan.py::conv_block`` on a channels-equal
     256-channel ConvBlock ``p``."""

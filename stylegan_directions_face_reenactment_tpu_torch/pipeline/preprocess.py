@@ -21,6 +21,7 @@ from ..models.face.cropping import (crop_using_landmarks_batch, ffhq_crop_device
 from ..models.face.fan import FAN
 from ..models.face.landmarks import estimate_landmarks
 from ..models.face.s3fd import S3FD
+from ..native.imgproc import to_gan_range
 from ..utils.device import DeviceLike, resolve_device
 
 DETECT_WIDTH = 1000  # `utils_inference.py:67` image_resize(width=1000)
@@ -42,12 +43,6 @@ def resize_width(image: np.ndarray, width: int = DETECT_WIDTH) -> np.ndarray:
         resample = Image.BOX if width < w else Image.BILINEAR
         return np.array(Image.fromarray(image).resize(dim, resample))
     return cv2.resize(image, dim, interpolation=cv2.INTER_AREA)
-
-
-def to_gan_range(image_uint8: np.ndarray) -> np.ndarray:
-    """HWC uint8 → HWC float32 in [-1, 1] (ToTensor → Normalize(.5, .5, .5),
-    ``dataloader.py:31-34``)."""
-    return image_uint8.astype(np.float32) / 127.5 - 1.0
 
 
 def preprocess_batch_device(s3fd: S3FD, fan: FAN, frames: torch.Tensor,

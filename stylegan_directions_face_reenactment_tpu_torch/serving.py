@@ -54,7 +54,7 @@ WEIGHTS_FILE = "weights.npz"
 WEIGHTS_TREE_FILE = "weights_tree.json"
 META_FILE = "meta.json"
 PLATFORMS = ("cuda", "cpu")
-TARGET_SIZE = 256        # ``pipeline/source_setup.py::CROP_SIZE``
+CROP_SIZE = 256          # ``pipeline/source_setup.py``'s, which a server does not import
 _SOURCE_PARAM_DIMS = (("pose", 6), ("alpha_shp", 100), ("alpha_exp", 50), ("cam", 3))
 
 
@@ -105,7 +105,7 @@ def _one_platform(platforms) -> str:
 
 
 def reenact_arg_specs(weights, *, n_latent: int, frame_batch: int,
-                      target_size: int = TARGET_SIZE, reuse_landmarks: bool = False,
+                      target_size: int = CROP_SIZE, reuse_landmarks: bool = False,
                       device="cuda") -> Tuple:
     """Example arguments of ``make_reenact_program``'s ``fn`` at these
     shapes, on ``device``: the weights tree itself, then zeros (the values
@@ -140,7 +140,7 @@ def export_reenact(g, a, deca, spec, *, frame_batch: int = 16, truncation: float
                    truncation_latent: Optional[torch.Tensor] = None,
                    num_layers_shift: int = 8, compute_dtype: torch.dtype = torch.float32,
                    fan_params=None, s3fd_params=None, return_target_params: bool = False,
-                   reuse_landmarks: bool = False, target_size: int = TARGET_SIZE,
+                   reuse_landmarks: bool = False, target_size: int = CROP_SIZE,
                    platforms: Optional[Tuple[str, ...]] = None):
     """Export the reenactment program → (ExportedProgram, weights, meta).
 

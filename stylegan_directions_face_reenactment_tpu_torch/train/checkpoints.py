@@ -1,6 +1,7 @@
 """Resuming training from A's file (the reference's
 ``utils_train.py:578-589``; the JAX package's ``train/checkpoints.py``).
-The file itself is ``weights/a_matrix.py``'s.
+The file itself is ``weights/a_matrix.py``'s; its ``save_a_matrix`` and
+``load_a_matrix`` are re-exported here, where the JAX package has them.
 
 One deviation, on purpose, as in the JAX package: the reference's resume
 tests ``step in state_dict`` with step = 0 instead of ``'step' in ...``
@@ -15,7 +16,7 @@ from typing import Optional, Tuple
 
 from ..models.direction_matrix import DirectionMatrix
 from ..utils.device import DeviceLike
-from ..weights.a_matrix import load_a_matrix
+from ..weights.a_matrix import load_a_matrix, save_a_matrix  # noqa: F401  (re-exported)
 
 
 def start_from_checkpoint(resume_path: Optional[str], device: DeviceLike = None

@@ -30,7 +30,8 @@ from stylegan_directions_face_reenactment_tpu.models.deca.deca import (
 from stylegan_directions_face_reenactment_tpu.models.face.cropping import (
     ffhq_crop_device as j_ffhq_crop_device, landmarks_in_crop as j_landmarks_in_crop)
 from stylegan_directions_face_reenactment_tpu.models.face.landmarks import (
-    crop_faces as j_crop_faces, estimate_landmarks as j_estimate_landmarks,
+    crop_faces as j_crop_faces, crop_transform as j_crop_transform,
+    estimate_landmarks as j_estimate_landmarks,
     select_reference_face as j_select_reference_face)
 from stylegan_directions_face_reenactment_tpu.models.nn import resize_bilinear as j_resize
 from stylegan_directions_face_reenactment_tpu.pipeline.alignment import (
@@ -41,7 +42,7 @@ from stylegan_directions_face_reenactment_tpu.weights.torch_convert import (
 
 from stylegan_directions_face_reenactment_tpu_torch.models.deca import calculate_shapemodel
 from stylegan_directions_face_reenactment_tpu_torch.models.face import (
-    crop_faces, estimate_landmarks, ffhq_crop_device, landmarks_in_crop,
+    crop_faces, crop_transform, estimate_landmarks, ffhq_crop_device, landmarks_in_crop,
     select_reference_face)
 from stylegan_directions_face_reenactment_tpu_torch.pipeline.alignment import (
     DECA_CROP, kpt68_center_size, landmark_align, warp_to_224)
@@ -72,6 +73,30 @@ def test_crop_faces_matches_jax():
                      torch.from_numpy(scale), 64).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=2e-3)
     assert (got[2, :8] == 0).all()          # zero padding above the frame
+
+
+def test_crop_transform_matches_jax():
+    """The 200·scale crop's src→dst affine against the JAX function (rtol
+    1e-6), and the corners ``crop_faces`` takes (ul = trunc(c − h/2 + h/res),
+    br = trunc(c + h/2)) land within one source pixel (res/h of the crop) of
+    crop pixel 1 and of res."""
+    center = np.float32([[60.3, 45.7], [10.0, 80.2], [118.9, -3.5]])
+    scale = np.float32([0.31, 0.52, 0.2])
+    tc, ts = torch.from_numpy(center), torch.from_numpy(scale)
+    torch.testing.assert_close(crop_transform(tc, ts), crop_transform(tc, ts, 256.0),
+                               rtol=0, atol=0)
+    for res in (64.0, 256.0):
+        want = np.asarray(j_crop_transform(jnp.asarray(center), jnp.asarray(scale), res))
+        got = crop_transform(tc, ts, res)
+        assert got.shape == (3, 3, 3) and got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=0)
+        h = 200.0 * ts
+        ul = torch.trunc(tc - (h / 2.0 - h / res)[:, None])
+        br = torch.trunc(tc + (h / 2.0)[:, None])
+        for corner, to in ((ul, 1.0), (br, res)):
+            dst = torch.einsum("bij,bj->bi", got, torch.cat([corner, torch.ones(3, 1)], 1))
+            assert ((dst[:, :2] - to).abs() <= (res / h)[:, None] + 1e-4).all()
+            assert (dst[:, 2] == 1).all()
 
 
 def test_select_reference_face_last_passing():

@@ -27,7 +27,7 @@ from stylegan_directions_face_reenactment_tpu.models.face.fan import (
     heatmaps_to_landmarks as j_heatmaps_to_landmarks,
     landmarks_to_image_coords as j_landmarks_to_image_coords)
 from stylegan_directions_face_reenactment_tpu.ops.fused_conv_block import (
-    conv_block_fused as j_conv_block_fused)
+    conv_block_fused as j_conv_block_fused, fused_conv_block_256 as j_fused_conv_block_256)
 from stylegan_directions_face_reenactment_tpu.weights.torch_convert import convert_fan
 
 from stylegan_directions_face_reenactment_tpu_torch.models.face.fan import (
@@ -87,6 +87,29 @@ def test_conv_block_matches_jax(block, hw, dtype):
     tol = dict(rtol=1e-4, atol=1e-4) if dtype == "float32" else dict(rtol=0.05, atol=0.15)
     np.testing.assert_allclose(got, want_xla, **tol)
     np.testing.assert_allclose(got, want_pallas, **tol)
+
+
+def test_fused_conv_block_256_matches_jax(block):
+    """K3's entry on the JAX package's operands (each stage's fold and
+    weight) against the JAX ``fused_conv_block_256``, the Pallas kernel in
+    interpret mode: the port takes OIHW weights and NCHW x where the JAX
+    function takes (9, cin, cout) and NHWC."""
+    from stylegan_directions_face_reenactment_tpu_torch.models.nn import fold_bn
+    _, p = block
+    x = np.random.RandomState(9).randn(2, 8, 8, 256).astype(np.float32)
+    with torch.no_grad():
+        folds = [fold_bn(bn, torch.float32) for bn in (p.bn1, p.bn2, p.bn3)]
+    ws = [c.weight.detach() for c in (p.conv1, p.conv2, p.conv3)]
+    j_args = [a for (i, f), w in zip(folds, ws) for a in (
+        jnp.asarray(i.numpy()[None]), jnp.asarray(f.numpy()[None]),
+        jnp.asarray(w.permute(2, 3, 1, 0).reshape(9, w.shape[1], w.shape[0]).numpy()))]
+    want = np.asarray(j_fused_conv_block_256(jnp.asarray(x), *j_args))
+    with torch.no_grad():
+        got = k3.fused_conv_block_256(torch.from_numpy(x).permute(0, 3, 1, 2),
+                                      *[a for (i, f), w in zip(folds, ws) for a in (i, f, w)])
+        torch.testing.assert_close(got, conv_block(p, torch.from_numpy(x).permute(0, 3, 1, 2)),
+                                   rtol=0, atol=0)
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), want, rtol=1e-4, atol=1e-4)
 
 
 def test_fan_forward_matches_jax(fans):

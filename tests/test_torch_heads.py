@@ -8,7 +8,8 @@ randomized where the init leaves them at zero or identity) through the
 port's ``*_from_jax`` converter; inputs are made with numpy from a seed.
 
 Tolerances (max |diff| against atol·max|JAX output| plus rtol·|JAX|):
-the discriminator and W+ encoder rtol 1e-4, atol 1e-5·max (equalized
+the discriminator (its ``conv_layer`` and ``res_block`` too) and W+
+encoder rtol 1e-4, atol 1e-5·max (equalized
 3×3 convs of up to 4608 terms through eight layers); the pSp heads rtol
 1e-5, atol 5e-6·max (e4e's bound, ``test_torch_e4e.py``); the depth net
 rtol 1e-4, atol 1e-5·max (a bottleneck ResNet on a 71-channel 256² input);
@@ -106,6 +107,33 @@ def test_discriminator_matches_jax(disc):
         got = d(torch.from_numpy(x))
     assert got.shape == (4, 1)
     close(got.numpy(), want, 1e-4, 1e-5)
+
+
+@pytest.mark.parametrize("block", [0, 1, 2])
+def test_conv_layer_and_res_block_match_jax(disc, block):
+    """``conv_layer`` and ``res_block`` against the JAX functions on the
+    discriminator's weights: block 0 the unstrided 1×1 layer, blocks 1-2
+    ResBlocks and, inside them, the unstrided 3×3 layer, the strided 3×3
+    layer and the strided 1×1 skip without activation; the modules'
+    ``forward`` is the same call."""
+    j, d = disc
+    jp, m = j["blocks"][block], d.convs[block]
+    cin = m[-1].bias.shape[0] if block == 0 else m.conv1[0].weight.shape[1]
+    x = nhwc(10 + block, 2, 32 >> max(block - 1, 0), 32 >> max(block - 1, 0),
+             3 if block == 0 else cin)
+    tx = torch.from_numpy(x).permute(0, 3, 1, 2)
+    if block == 0:
+        pairs = [(j_sg.conv_layer, jp, sg.conv_layer, m)]
+    else:
+        pairs = [(j_sg.res_block, jp, sg.res_block, m)] + [
+            (j_sg.conv_layer, jp[k], sg.conv_layer, getattr(m, k))
+            for k in ("conv1", "conv2", "skip")]
+    for j_fn, j_p, fn, mod in pairs:
+        want = statics_jit(j_fn, j_p)(jnp.asarray(x))
+        with torch.no_grad():
+            got = fn(mod, tx)
+            torch.testing.assert_close(mod(tx), got, rtol=0, atol=0)
+        close(got.permute(0, 2, 3, 1).numpy(), want, 1e-4, 1e-5)
 
 
 def test_minibatch_stddev_matches_jax():

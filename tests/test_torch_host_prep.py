@@ -43,6 +43,7 @@ from stylegan_directions_face_reenactment_tpu_torch.models.face.cropping import 
     crop_using_landmarks, crop_using_landmarks_batch)
 from stylegan_directions_face_reenactment_tpu_torch.native import (
     extract_frames, from_gan_range, generate_video, resize_bilinear_u8, video_fps)
+from stylegan_directions_face_reenactment_tpu_torch.native import imgproc
 from stylegan_directions_face_reenactment_tpu_torch.pipeline import (
     make_prep_fn, preprocess_images, resize_width, to_gan_range)
 from stylegan_directions_face_reenactment_tpu_torch.utils.image_utils import (
@@ -126,6 +127,62 @@ def test_crop_using_landmarks_batch_matches_jax(crop_inputs):
     np.testing.assert_array_equal(ok, ok_w)
     assert ok.tolist() == [True] * 4 + [False]
     assert max_diff(got, want) <= 1
+
+
+@pytest.fixture(scope="module")
+def crop_batch(crop_inputs):
+    """Ten frames of one shape: six boxes inside the frame, the three
+    leaving it of ``crop_inputs`` and a degenerate set of landmarks."""
+    images, lms = crop_inputs
+    inside = [_ring(200, 160, 60, 10), _ring(150, 150, 40, 11), _ring(250, 170, 50, 12),
+              _ring(120, 200, 45, 13), _ring(280, 140, 55, 14), _ring(200, 150, 30, 15)]
+    pts = np.stack(inside + lms[1:] + [np.full((68, 2), 50.0, np.float32)])
+    frames = np.stack([images[i % 2] for i in range(len(pts))])
+    return frames, pts
+
+
+def test_ffhq_crop_batch_matches_the_serial_crop(crop_batch):
+    """Bit-equal to the serial ``crop_using_landmarks`` on every in-frame
+    box, both at the caller's intra-op thread count; the other crops stay
+    zero and are not done."""
+    frames, pts = crop_batch
+    crops, done = imgproc.ffhq_crop_batch(frames, pts)
+    assert crops.dtype == np.uint8 and crops.shape == (10, 256, 256, 3)
+    assert done.tolist() == [True] * 6 + [False] * 4
+    assert not crops[~done].any()
+    for crop, f, p in zip(crops[done], frames[done], pts[done]):
+        np.testing.assert_array_equal(crop, crop_using_landmarks(f, p))
+
+
+def test_ffhq_crop_batch_matches_jax(crop_batch):
+    """The same ``done`` as the JAX package's native ``ffhq_crop_batch`` and
+    crops within 1 unit of its crops; the batch crop gives the same bytes on
+    the in-frame boxes and crops the rest, and frames of mixed shapes, one
+    by one."""
+    frames, pts = crop_batch
+    crops, done = imgproc.ffhq_crop_batch(frames, pts)
+    assert j_imgproc.native_available()
+    want, done_w = j_imgproc.ffhq_crop_batch(frames, pts)
+    np.testing.assert_array_equal(done, done_w)
+    assert max_diff(crops[done], want[done]) <= 1
+    out, ok = crop_using_landmarks_batch(list(frames), pts)
+    np.testing.assert_array_equal(out[done], crops[done])
+    assert ok.tolist() == [True] * 9 + [False]
+    mixed = [frames[0], frames[1][:, :390]]
+    out, ok = crop_using_landmarks_batch(mixed, pts[:2])
+    assert ok.all()
+    for got, f, p in zip(out, mixed, pts[:2]):
+        np.testing.assert_array_equal(got, crop_using_landmarks(f, p))
+
+
+def test_to_gan_range_is_the_jax_conversion():
+    """``native/imgproc.py::to_gan_range`` is ``pipeline``'s and equals the
+    JAX package's native conversion exactly."""
+    u8 = np.random.RandomState(8).randint(0, 256, (2, 9, 11, 3)).astype(np.uint8)
+    assert imgproc.to_gan_range is to_gan_range
+    got = imgproc.to_gan_range(u8)
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, j_imgproc.to_gan_range(u8))
 
 
 @pytest.mark.parametrize("width", [200, 100])

@@ -41,6 +41,8 @@ from stylegan_directions_face_reenactment_tpu.weights.torch_convert import (
 import stylegan_directions_face_reenactment_tpu_torch as port_pkg
 from stylegan_directions_face_reenactment_tpu_torch.geometry import (
     initialize_directions)
+from stylegan_directions_face_reenactment_tpu_torch.models.deca.deca import (
+    calculate_shapemodel)
 from stylegan_directions_face_reenactment_tpu_torch.pipeline import (
     make_reenact_fn, reenact_batch)
 from stylegan_directions_face_reenactment_tpu_torch.weights import (
@@ -143,7 +145,10 @@ def test_reenact_batch_bf16_matches_jax(world, jax_f32):
     read here: coefficients 0.0026-0.0044 (limit 0.009), angles 0.0057
     (0.012), latents 0.011 (0.022), images 0.028 (0.055). Against the f32
     slice, the port's bf16 image must be no further off than the JAX
-    package's own bf16 image (ratio read 0.82; limit 1.25).
+    package's own bf16 image (ratio read 0.82; limit 1.25). This file keeps
+    every core (it takes no ``_threads``): the angles read 0.0129 at one
+    thread, where ``F.interpolate``'s thread-dependent last bits reach the
+    bf16 trunk (the three tests below).
     """
     want_img, want_lat, want_pt, want_at = _jax_reenact(world, jnp.bfloat16)
     img, lat, pt, at = _port_reenact(world, torch.bfloat16)
@@ -156,6 +161,93 @@ def test_reenact_batch_bf16_matches_jax(world, jax_f32):
     f32_img = jax_f32[0]
     ratio = _mean_rel(img, f32_img) / _mean_rel(want_img, f32_img)
     assert ratio < 1.25, ratio
+
+
+def _at_threads(fn):
+    """fn() with torch on one thread, then on every core; the caller's
+    thread count is restored after."""
+    before = torch.get_num_threads()
+    try:
+        outs = []
+        for n in (1, os.cpu_count() or 1):
+            torch.set_num_threads(n)
+            outs.append(fn())
+        return outs
+    finally:
+        torch.set_num_threads(before)
+
+
+def test_deca_trunk_bf16_ignores_the_thread_count(world):
+    """The port's bf16 DECA trunk (ResNet-50 and its head, every conv and
+    linear in bf16) gives bit-equal outputs at one thread and on every core
+    for one fixed bf16 input: no reduction in the port's bf16 arithmetic
+    depends on the thread count."""
+    from stylegan_directions_face_reenactment_tpu_torch.models.deca.deca import (
+        resnet_encoder_forward)
+    e_flame = world["port"][2].E_flame
+    x = torch.from_numpy(np.random.RandomState(7).uniform(
+        0, 1, (2, 3, 224, 224)).astype(np.float32)).to(torch.bfloat16)
+    with torch.no_grad():
+        one, many = _at_threads(lambda: resnet_encoder_forward(e_flame, x))
+    assert one.dtype == torch.bfloat16 and torch.isfinite(one.float()).all()
+    assert torch.equal(one, many)
+
+
+def test_resize_to_224_is_where_the_thread_count_enters(world):
+    """``calculate_shapemodel`` resizes the f32 targets to 224 with
+    ``models/nn.py::resize_bilinear`` (``F.interpolate``) before the bf16
+    cast, and torch's CPU kernel sums in another order at another thread
+    count. Read here (8 cores), one thread against eight: 115,523 of the
+    301,056 f32 outputs differ, 3,230 of them by more than 1 ulp, at most
+    by 3 ulp; after the cast 4 of the 301,056 bf16 trunk inputs differ.
+    Limits: 4 ulp in f32, at most 1e-4 of the values after the cast."""
+    from stylegan_directions_face_reenactment_tpu_torch.models.nn import resize_bilinear
+    x = ((torch.from_numpy(world["tgts"]).clamp(-1, 1) + 1.0) / 2.00001).permute(0, 3, 1, 2)
+    one, many = _at_threads(lambda: resize_bilinear(x, (224, 224)))
+    assert one.shape == (2, 3, 224, 224)
+    a, b = one.numpy(), many.numpy()
+    ulps = np.abs(a - b) / np.spacing(np.maximum(np.abs(a), np.abs(b)))
+    flips = (one.to(torch.bfloat16) != many.to(torch.bfloat16)).sum().item()
+    assert ulps.max() <= 4
+    assert flips <= 1e-4 * one.numel(), flips
+
+
+def test_deca_bf16_no_further_from_f32_than_jax(world):
+    """At one thread and on every core, each of the port's bf16 DECA
+    outputs (pose, alpha_shp, alpha_exp, cam and the angles, each on its
+    own) is no further from the JAX package's f32 ones than the JAX
+    package's own bf16 ones are: mean relative drift over 64 uniform 64²
+    targets from numpy seed 0 (the world's DECA), ratio at most 1.25, a
+    bound the thread count does not enter.
+
+    Read here, one thread / eight: pose 1.101 / 1.064, alpha_shp 1.051 /
+    1.054, alpha_exp 1.084 / 1.103, cam 1.014 / 1.031, angles 1.046 / 1.052.
+    Fewer frames make the ratio of two small means noisy: on 16 frames the
+    groups read 1.01-1.28 (angles 1.28), on a pair of frames 0.33-3.38
+    (``tests/torch_bf16_drift.py``). XLA keeps excess precision between
+    fused bf16 operations; with ``XLA_FLAGS=--xla_allow_excess_precision=false``,
+    rounding after every operation as the eager port does, 16 frames read
+    1.00-1.11.
+    """
+    deca, pdeca = world["jax"][2], world["port"][2]
+    targets = np.random.RandomState(0).uniform(-1, 1, (64, SIZE, SIZE, 3)).astype(np.float32)
+
+    def jax_run(dtype):
+        pt, at = jax.jit(lambda im: j_calculate_shapemodel(deca, im, compute_dtype=dtype))(
+            targets)
+        return dict({k: np.asarray(v) for k, v in pt.items()}, angles=np.asarray(at))
+
+    def port_run():
+        with torch.no_grad():
+            pt, at = calculate_shapemodel(pdeca, torch.from_numpy(targets),
+                                          compute_dtype=torch.bfloat16)
+        return dict({k: v.numpy() for k, v in pt.items()}, angles=at.numpy())
+
+    f32, bf16 = jax_run(None), jax_run(jnp.bfloat16)
+    assert sorted(f32) == ["alpha_exp", "alpha_shp", "angles", "cam", "pose"]
+    for got in _at_threads(port_run):
+        ratios = {k: _mean_rel(got[k], f32[k]) / _mean_rel(bf16[k], f32[k]) for k in f32}
+        assert max(ratios.values()) <= 1.25, ratios
 
 
 def test_make_reenact_fn_on_cpu(world):
