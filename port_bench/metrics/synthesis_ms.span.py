@@ -1,0 +1,11 @@
+"""Device ms a chunk of the program's own ``reenact.synthesis`` span inside
+the timed entry (the synthesis of the shifted code): the device time of the
+kernels launched under it, median over the traced chunks. None where the
+program records no such span."""
+
+from statistics import median
+
+
+def read(run):
+    calls = run.readings["trace"].under_op("reenact.synthesis")
+    return 1e3 * median(t for _, t in calls) if calls else None

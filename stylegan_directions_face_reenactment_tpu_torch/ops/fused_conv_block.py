@@ -41,7 +41,10 @@ of the TPU and do not carry over. CPU tensors take the plain version.
 * :func:`fused_conv_block_cuda` launches the kernel and counts its launches
   in ``fused_conv_block_cuda.launches`` (one a block; the kernel runs as a
   prologue and three stage launches, each split stage with its reduce
-  pass).
+  pass), and in ``fused_conv_block_cuda.cache_misses`` the launches it
+  checked and planned anew (not from its launch cache).
+* :func:`block_args` counts in ``fused_conv_block.args_built`` each time
+  it makes a ConvBlock's folds and packed weights anew.
 * The operator's autograd formula (:func:`fused_conv_block_bwd`)
   recomputes the plain version from the saved inputs and differentiates
   it, as the JAX package's custom VJP (``fused_conv_block_256``'s ``_bwd``:
@@ -195,6 +198,7 @@ def block_args(p, dtype: torch.dtype) -> K3Args:
     tensors = list(p.parameters()) + list(p.buffers())
 
     def build():
+        fused_conv_block.args_built += 1
         folds = [fold_bn(bn, dtype) for bn in (p.bn1, p.bn2, p.bn3)]
         return make_k3_args([f[0] for f in folds], [f[1] for f in folds],
                             [p.conv1.weight, p.conv2.weight, p.conv3.weight], dtype)
@@ -284,6 +288,7 @@ def _launch_for(x: torch.Tensor, args: K3Args, keep: bool) -> _Launch:
     if hit is not None:
         return hit
     _check(x, args)
+    fused_conv_block_cuda.cache_misses += 1
     b, _, h, w = x.shape
     ptrs = []
     for k in range(3):
@@ -321,6 +326,7 @@ def fused_conv_block_cuda(x: torch.Tensor, args: K3Args, keep: bool = True) -> t
 
 
 fused_conv_block_cuda.launches = 0
+fused_conv_block_cuda.cache_misses = 0
 
 
 def fused_conv_block_bwd(grad: torch.Tensor, x: torch.Tensor, args: K3Args,
@@ -398,6 +404,9 @@ def fused_conv_block(x: torch.Tensor, args: K3Args) -> torch.Tensor:
     if x.is_cuda:
         x = x.contiguous()
     return fused_conv_block_op(x, *args.inv, *args.off, *args.w, *args.wk)
+
+
+fused_conv_block.args_built = 0
 
 
 def fused_conv_block_256(x, i1, f1, w1, i2, f2, w2, i3, f3, w3) -> torch.Tensor:

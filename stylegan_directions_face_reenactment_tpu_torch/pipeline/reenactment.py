@@ -17,10 +17,22 @@ of the mesh's devices, every frame batch is split over them on axis 0
 (it must divide the mesh), the parts run one after another with no
 synchronize between them, and the outputs are gathered in frame order on
 the mesh's first device.
+
+Each call of an entry (:func:`make_fused_reenact_fn`, :func:`make_reenact_fn`)
+is one ``reenact.call`` span (``utils/profiling.py::span``; ``call`` counts
+the entry's calls) over its stage spans: ``reenact.inputs`` (the inputs
+onto the device), ``reenact.preprocess`` and ``reenact.outputs`` (raw frames
+only: SFD → FAN → FFHQ crop; the 8-bit outputs), and from
+:func:`reenact_batch` ``reenact.deca`` (the alignment and DECA's encoder),
+``reenact.shift`` (Δp → A) and ``reenact.synthesis``. On one device every
+kernel of a call falls in exactly one stage; on a mesh the stages repeat a
+part and the parts' copies and the gather lie in the call alone. The spans
+exist only while a ``torch.profiler`` session is active.
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -36,6 +48,7 @@ from ..models.stylegan2 import Generator
 from ..ops.fused_conv_block import CHANNELS, K3Args, kernel_weight, program_args
 from ..parallel.mesh import Mesh, _to, data_parallel
 from ..utils.device import DeviceLike, resolve_device
+from ..utils.profiling import span
 from .alignment import landmark_align, make_fan_align
 from .preprocess import preprocess_batch_device
 from .synthesis import generate_image
@@ -92,24 +105,27 @@ def reenact_batch(g: Generator, a: DirectionMatrix, deca: DECA,
     """
     t = target_imgs.shape[0]
     align_dtype = None if compute_dtype == torch.float32 else compute_dtype
-    if target_lms is not None:
-        def align_fn(imgs01):
-            return landmark_align(imgs01, target_lms, target_ok)
-    else:
-        align_fn = align_for(fan_params, s3fd_params, compute_dtype=align_dtype)
-    params_target, angles_target = calculate_shapemodel(
-        deca, target_imgs, align_fn=align_fn, compute_dtype=align_dtype)
+    with span("reenact.deca"):
+        if target_lms is not None:
+            def align_fn(imgs01):
+                return landmark_align(imgs01, target_lms, target_ok)
+        else:
+            align_fn = align_for(fan_params, s3fd_params, compute_dtype=align_dtype)
+        params_target, angles_target = calculate_shapemodel(
+            deca, target_imgs, align_fn=align_fn, compute_dtype=align_dtype)
 
-    ps = {k: v.expand((t,) + tuple(v.shape[1:])) for k, v in params_source.items()}
-    angs = angles_source.expand(t, 3)
-    delta_p = make_shift_vector(spec, ps, params_target, angs, angles_target)
-    shift = direction_matrix_forward(a, delta_p)                 # (T, L, 512)
+    with span("reenact.shift"):
+        ps = {k: v.expand((t,) + tuple(v.shape[1:])) for k, v in params_source.items()}
+        angs = angles_source.expand(t, 3)
+        delta_p = make_shift_vector(spec, ps, params_target, angs, angles_target)
+        shift = direction_matrix_forward(a, delta_p)                 # (T, L, 512)
 
-    codes = source_code.expand((t,) + tuple(source_code.shape[1:]))
-    reenacted, shifted_latents = generate_image(
-        g, codes, truncation=truncation, truncation_latent=truncation_latent,
-        w_plus=True, num_layers_shift=num_layers_shift, shift_code=shift,
-        input_is_latent=True, return_latents=True, compute_dtype=compute_dtype)
+    with span("reenact.synthesis"):
+        codes = source_code.expand((t,) + tuple(source_code.shape[1:]))
+        reenacted, shifted_latents = generate_image(
+            g, codes, truncation=truncation, truncation_latent=truncation_latent,
+            w_plus=True, num_layers_shift=num_layers_shift, shift_code=shift,
+            input_is_latent=True, return_latents=True, compute_dtype=compute_dtype)
     if return_target_params:
         return reenacted, shifted_latents, params_target, angles_target
     return reenacted, shifted_latents
@@ -156,12 +172,14 @@ def reenact_raw_batch(g: Generator, a: DirectionMatrix, deca: DECA,
     if outputs not in OUTPUTS:
         raise ValueError(f"outputs must be one of {OUTPUTS}, got {outputs!r}")
     align_dtype = None if compute_dtype == torch.float32 else compute_dtype
-    crops_gan, ok, in_frame, pts = preprocess_batch_device(
-        sfd_prep, fan_prep, raw_frames, image_size=crop_size, compute_dtype=align_dtype)
+    with span("reenact.preprocess"):
+        crops_gan, ok, in_frame, pts = preprocess_batch_device(
+            sfd_prep, fan_prep, raw_frames, image_size=crop_size, compute_dtype=align_dtype)
+        if reuse_landmarks:
+            lms_crop, _ = landmarks_in_crop(pts, image_size=crop_size)
     kw = dict(truncation=truncation, truncation_latent=truncation_latent,
               num_layers_shift=num_layers_shift, compute_dtype=compute_dtype)
     if reuse_landmarks:
-        lms_crop, _ = landmarks_in_crop(pts, image_size=crop_size)
         reenacted, latents = reenact_batch(
             g, a, deca, spec, source_code, params_source, angles_source, crops_gan,
             target_lms=lms_crop, target_ok=ok, **kw)
@@ -169,9 +187,10 @@ def reenact_raw_batch(g: Generator, a: DirectionMatrix, deca: DECA,
         reenacted, latents = reenact_batch(
             g, a, deca, spec, source_code, params_source, angles_source, crops_gan,
             fan_params=fan_params, s3fd_params=s3fd_params, **kw)
-    crops_u8 = to_u8(crops_gan)          # the integer-valued crops, exactly
-    if output_u8 or outputs == "reenact":
-        reenacted = to_u8(reenacted)
+    with span("reenact.outputs"):
+        crops_u8 = to_u8(crops_gan)          # the integer-valued crops, exactly
+        if output_u8 or outputs == "reenact":
+            reenacted = to_u8(reenacted)
     if outputs == "reenact":
         return reenacted, ok, in_frame, pts
     return reenacted, latents, crops_u8, ok, in_frame, pts
@@ -232,15 +251,18 @@ def make_fused_reenact_fn(g: Generator, a: DirectionMatrix, deca: DECA,
             output_u8=output_u8, outputs=outputs)
 
     run = _over_mesh(body, mesh, nets, 1)
+    calls = itertools.count()
 
     def to_dev(x):
         return torch.as_tensor(x, dtype=torch.float32, device=dev)
 
     def fn(source_code, params_source, angles_source, raw_frames):
-        with torch.inference_mode():
-            return run(torch.as_tensor(raw_frames, device=dev), *nets, trunc,
-                       to_dev(source_code), {k: to_dev(v) for k, v in params_source.items()},
-                       to_dev(angles_source))
+        with torch.inference_mode(), span("reenact.call", call=next(calls)):
+            with span("reenact.inputs"):
+                args = (torch.as_tensor(raw_frames, device=dev), *nets, trunc,
+                        to_dev(source_code), {k: to_dev(v) for k, v in params_source.items()},
+                        to_dev(angles_source))
+            return run(*args)
 
     return fn
 
@@ -427,6 +449,7 @@ def make_reenact_fn(g: Generator, a: DirectionMatrix, deca: DECA,
                        angles_source, target_imgs, *extra)
 
     run = _over_mesh(body, mesh, (), 3)
+    calls = itertools.count()
 
     def to_dev(x, dtype=torch.float32):
         return torch.as_tensor(x, dtype=dtype, device=dev)
@@ -435,13 +458,15 @@ def make_reenact_fn(g: Generator, a: DirectionMatrix, deca: DECA,
         if len(extra) != (2 if reuse_landmarks else 0):
             raise TypeError("the reenactor takes target_lms and target_ok after "
                             "target_imgs with reuse_landmarks, and nothing else")
-        lms = ok = None
-        if reuse_landmarks:
-            lms, ok = to_dev(extra[0]), to_dev(extra[1], torch.bool)
-        with torch.inference_mode():
-            return run(to_dev(target_imgs), lms, ok, to_dev(source_code),
-                       {k: to_dev(v) for k, v in params_source.items()},
-                       to_dev(angles_source))
+        with torch.inference_mode(), span("reenact.call", call=next(calls)):
+            with span("reenact.inputs"):
+                lms = ok = None
+                if reuse_landmarks:
+                    lms, ok = to_dev(extra[0]), to_dev(extra[1], torch.bool)
+                args = (to_dev(target_imgs), lms, ok, to_dev(source_code),
+                        {k: to_dev(v) for k, v in params_source.items()},
+                        to_dev(angles_source))
+            return run(*args)
 
     return fn
 

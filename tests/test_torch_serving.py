@@ -248,6 +248,26 @@ def test_round_trip_matches_the_live_program(world):
     close(lat, want_lat)
 
 
+def test_export_under_a_profiler_holds_no_span(world):
+    """Exported while a ``torch.profiler`` session records, the program's
+    spans (``utils/profiling.py::span``) leave no node in the graph, which
+    is the graph exported without one, and it serves what the live program
+    computes."""
+    from torch.profiler import ProfilerActivity, profile
+    g, a, deca, _, _ = world["port"]
+    with profile(activities=[ProfilerActivity.CPU]):
+        ep, weights, meta = serving.export_reenact(g, a, deca, SPEC, frame_batch=FB,
+                                                   truncation_latent=world["trunc_t"],
+                                                   platforms=("cpu",))
+    assert not any("profiler" in str(n.target) for n in ep.graph.nodes)
+    assert [str(n.target) for n in ep.graph.nodes] == [
+        str(n.target) for n in world["ep"].graph.nodes]
+    want_img, want_lat = world["live"](*world["src"], world["tgts"][:FB])
+    img, lat = _in_memory(ep, weights, meta)(*world["src"], world["tgts"][:FB])
+    close(img, want_img)
+    close(lat, want_lat)
+
+
 def test_round_trip_matches_jax(world):
     jg, ja, jdeca, _, _ = world["jax"]
     fn = j_make_reenact_fn(jg, ja, jdeca, j_initialize_directions("voxceleb", 15, 6.0),
