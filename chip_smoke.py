@@ -279,6 +279,17 @@ def card_rates(name):
     return 3.35e12, 67e12, 989e12
 
 
+def tf32_rate(name):
+    """Dense TF32 tensor-core FLOP/s of the card from the data sheets (495
+    TFLOP/s on the H100 SXM and the H200), the rate K3's float32 path and
+    the benchmark's ``k3_roofline`` are counted against."""
+    if "H100" in name and "PCIe" in name:
+        return 378e12
+    if "H100" in name and "NVL" in name:
+        return 418e12
+    return 495e12
+
+
 def nvidia_smi():
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True, text=True,
@@ -560,8 +571,12 @@ def phase_timing(card_name):
             add(t, ms=ms, host_us=host, call_ms=call_ms, plain_ms=plain, bound_ms=bound,
                 bytes=nbytes, ops=ops)
         out[("fused_bias_act", tag)] = t
-        # K3: every call of the two FAN passes of a request
-        rate = flops if dtype == torch.float32 else bf16_flops
+        # K3: every call of the two FAN passes of a request. float32 runs
+        # three TF32 products a product: its bound is the operations at the
+        # TF32 rate (as the benchmark's k3_roofline counts them), its floor
+        # three times that
+        rate = tf32_rate(card_name) if dtype == torch.float32 else bf16_flops
+        passes = 3 if dtype == torch.float32 else 1
         # the plain version on the card is the cuDNN composition (three
         # convolutions and the elementwise folds): its device time is the
         # per-size yardstick, though no single PyTorch call computes K3
@@ -578,12 +593,17 @@ def phase_timing(card_name):
                   f"{ms:.4f} ms ({ops / ms / 1e9:.1f} TFLOP/s), host {host:.2f} us, call "
                   f"{call_ms:.4f} ms; cuDNN composition device {plain:.4f} ms, host "
                   f"{plain_host:.2f} us, call {plain_call:.4f} ms; bound {bound:.4f} ms "
-                  f"(operations at {rate / 1e12:.0f} TFLOP/s); kernel/composition "
-                  f"{ms / plain:.3f}")
+                  f"(operations at {rate / 1e12:.0f} TFLOP/s"
+                  + (f"; {passes}-product floor {passes * bound:.4f} ms" if passes > 1 else "")
+                  + f"); kernel/composition {ms / plain:.3f}")
             add(t, ms=calls * ms, host_us=calls * host, call_ms=calls * call_ms,
                 plain_ms=calls * plain, plain_call_ms=calls * plain_call,
                 bound_ms=calls * bound, bytes=calls * nbytes, ops=calls * ops)
         out[("fused_conv_block", tag)] = t
+        print(f"[timing] fused_conv_block per request of {BATCH} frames, {tag}: bound "
+              f"{t['bound_ms']:.4f} ms at {rate / 1e12:.0f} TFLOP/s"
+              + (f", {passes}-product floor {passes * t['bound_ms']:.4f} ms" if passes > 1
+                 else "") + f", kernel device {t['ms']:.4f} ms")
     for (name, tag), t in out.items():
         print_sums(f"[timing] {name} per request of {BATCH} frames, {tag}", t, bw)
     return out

@@ -17,11 +17,13 @@
 //
 // What bounds it on an H100: operations. A block-pixel costs
 // 2*9*(256*128 + 128*64 + 64*64) = 811,008 FLOP against 2*256 activations
-// read and written (2 KB in f32), about 400 FLOP a byte.
+// read and written (2 KB in f32), about 400 FLOP a byte. In float32 the
+// stage runs three TF32 products a product (below), so its floor is
+// 3 x 811,008 FLOP a block-pixel at the TF32 dense rate, 495 TFLOP/s.
 //
 // What the design does about that: each stage is an implicit GEMM with
 // M = the pixels of all images (B*H*W), N = the stage's output channels and
-// K = 9 taps x its input channels, on tiles of 128 pixels x 64 channels.
+// K = 9 taps x its input channels, on tiles of 128 pixels x N channels.
 // * The fold and ReLU are out of the main loop. A prologue pass writes
 //   A1 = relu(x*i1 + f1) channels-innermost (NHWC); each stage's epilogue
 //   writes the next stage's activation A(k+1) = relu(o_k*i + f) in NHWC
@@ -34,19 +36,35 @@
 //   cp.async (16 bytes a copy, zero-fill for the halo and the ragged last
 //   tile), so the copies of the next steps are in flight while a step's
 //   products run.
-// * bf16 on the tensor cores: wgmma m64nNk16 (bf16 in, f32 sums) from
-//   128-byte-swizzled shared memory, two warpgroups of 64 pixels each, N =
-//   128 channels for the first stage (half the pixel rows copied per
-//   product of the 64-wide tile) and 64 for the others, copies two (N = 128)
-//   or three steps ahead in a ring of 3 or 4 slots, K steps of (tap, 64
-//   channels): one 128-byte row a pixel and one a weight row. Weights are
-//   packed (9, cin / 64, cout, 64), so a K step's B operand is one
-//   contiguous K-major slab.
-// * float32 on the CUDA cores (no TF32, so that it holds to f32 tolerance):
-//   register blocking, 128 threads each with 8 pixels x 8 channels of sums
-//   from float4 shared loads (16 for every 4 channels, 256 FMAs), K steps of
-//   (tap, 16 channels), a 3-stage cp.async ring. Weights stay
-//   (cin, 3, 3, cout), so a K step's B rows are 64 contiguous channels.
+// * Both dtypes on the tensor cores, with wgmma from 128-byte-swizzled
+//   shared memory, two warpgroups of 64 pixels each, N = 128 channels for
+//   the first stage (half the pixel rows copied per product of the 64-wide
+//   tile) and 64 for the others, K steps of (tap, one 128-byte row of
+//   channels) for a pixel and for a weight row. Weights are packed one
+//   contiguous K-major slab a K step.
+// * bf16: wgmma m64nNk16 (bf16 in, f32 sums), K steps of 64 channels,
+//   weights packed (9, cin / 64, cout, 64), copies two (N = 128) or three
+//   steps ahead in a ring of 3 or 4 slots.
+// * float32: three TF32 products, so that it holds to f32 tolerance. Every
+//   operand v is split into hi = tf32(v) and lo = tf32(v - hi), and each
+//   product summed as a_hi b_hi + a_hi b_lo + a_lo b_hi (a_lo b_lo, about
+//   2^-22 relative, is dropped). The splits are made where the operands are
+//   written, so the main loop only copies and multiplies: the prologue and
+//   the epilogues write each activation as two NHWC planes, hi and then lo
+//   (M * C floats apart), and the weights are split once, at pack time,
+//   into (9, cin / 32, 2, cout, 32): a K step's slab is the N hi rows, then
+//   the N lo rows. K steps of 32 channels, channel chunk by chunk and the 9
+//   taps within a chunk (the 9 shifted reads of a chunk's rows follow each
+//   other, so they stay in L2); per 8 channels a warpgroup issues
+//   m64n(2N)k8 on A_hi and [B_hi | B_lo], whose two halves sum the big and
+//   the small products apart, and m64nNk8 on A_lo and B_hi into the small
+//   half. The tensor cores' own sums are less exact than float32's, so
+//   every kSumSteps steps the two halves are added into float32 sums on
+//   the CUDA cores, rounded.
+//   The planes double the bytes a K step copies (about 200 FLOP a byte of
+//   activation), which still leaves the stage on its operations. A ring of
+//   3 slots for N = 128 or 4 for N = 64 (one block an SM), copies two or
+//   three steps ahead, issued after the step's products.
 // * Small maps (B*H*W of a few thousand pixels or fewer) put too few tiles on
 //   132 SMs: the K loop is split across blocks (blockIdx.z), each writing an
 //   f32 partial tile, and a second short pass, one thread an element, sums
@@ -66,7 +84,7 @@ namespace {
 typedef __nv_bfloat16 bf16;
 
 constexpr int kC = 256;              // block channels (in = out)
-constexpr int kBM = 128, kBN = 64;   // pixels x output channels of a tile (f32, reduce)
+constexpr int kBM = 128, kBN = 64;   // pixels x output channels of a tile (N = 64, reduce)
 constexpr int kLdc = kBN + 1;        // row stride of the f32 epilogue tile
 constexpr int kRM = 4;               // pixels of a split-K reduce tile (x 64 = 256 threads)
 
@@ -84,15 +102,20 @@ template <int BN> struct WgTile {
                 "epilogue tile fits the ring");
 };
 
-// f32 stage
-constexpr int kFK = 16;              // channels of a K step
-constexpr int kFStages = 3;
-constexpr int kAStride = 20;         // floats an A row (16 channels, padded)
-constexpr int kFThreads = 128;
-constexpr int kFStageFloats = kBM * kAStride + kFK * kBN;
-constexpr int kFSmem = kFStages * kFStageFloats * 4;
-
-static_assert((kBM * kLdc + kBM) * 4 <= kFSmem, "epilogue tile fits the ring");
+// float32 (three TF32 products) stage, tiles of 128 pixels x BN channels
+constexpr int kTK = 32;              // channels of a K step: 128 bytes
+constexpr int kAPlane = kBM * 128;   // one plane (hi or lo) of a step's A
+constexpr int kSumSteps = 2;         // K steps a tensor-core sum runs before it is rounded
+                                     // into the float32 sums
+template <int BN> struct TfTile {
+  static constexpr int kStages = BN == 128 ? 3 : 4;   // one block an SM either way
+  static constexpr int kAhead = kStages - 1;          // steps of copies in flight
+  static constexpr int kStageBytes = 2 * kAPlane + 2 * BN * 128;
+  static constexpr int kSmem = kStages * kStageBytes + 1024;   // + alignment to 1024
+  static_assert(kSmem <= 232448, "the ring fits a block's shared memory");
+  static_assert((kBM * (BN + 1) + kBM) * 4 <= kStages * kStageBytes,
+                "epilogue tile fits the ring");
+};
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
@@ -124,7 +147,7 @@ struct Epi {
   T* out;
   const T* x;
   int c0;
-  T* act;            // (M, cout) NHWC, or null
+  T* act;            // (M, cout) NHWC (f32: the hi plane, then the lo plane), or null
   const T* inv;
   const T* off;
   int m, hw, cout;
@@ -132,8 +155,8 @@ struct Epi {
 
 template <typename T>
 struct Gemm {
-  const T* a;        // (M, cin) NHWC activation
-  const T* w;        // f32: (cin, 3, 3, cout); bf16: (9, cin / 64, cout, 64)
+  const T* a;        // (M, cin) NHWC activation (f32: hi plane, then lo plane)
+  const T* w;        // f32: (9, cin / 32, 2, cout, 32); bf16: (9, cin / 64, cout, 64)
   int cin, h, w_;
   int ksteps, kchunk;
   float* ws;         // (splits, M, cout) partial sums, or null: no split
@@ -171,6 +194,40 @@ __device__ __forceinline__ void store8(bf16* p, const float (&v)[8]) {
   *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
 }
 
+// v rounded to TF32 (10 mantissa bits, the low 13 bits zero), ties away
+// from zero
+__device__ __forceinline__ float tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return __uint_as_float(r);
+}
+
+// An activation as the next stage reads it: bf16 as it is; f32 as the two
+// TF32 operands of the three-product sums, hi = tf32(v) at act[i] and lo =
+// tf32(v - hi) (v - hi is exact) at act[plane + i].
+__device__ __forceinline__ void put_act(bf16* act, size_t, size_t i, float v) {
+  act[i] = __float2bfloat16(v);
+}
+__device__ __forceinline__ void put_act(float* act, size_t plane, size_t i, float v) {
+  const float hi = tf32(v);
+  act[i] = hi;
+  act[plane + i] = tf32(v - hi);
+}
+__device__ __forceinline__ void put_act8(bf16* act, size_t, size_t i, const float (&v)[8]) {
+  store8(act + i, v);
+}
+__device__ __forceinline__ void put_act8(float* act, size_t plane, size_t i,
+                                         const float (&v)[8]) {
+  float hi[8], lo[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    hi[j] = tf32(v[j]);
+    lo[j] = tf32(v[j] - hi[j]);
+  }
+  store8(act + i, hi);
+  store8(act + plane + i, lo);
+}
+
 // The epilogue of a ROWS x BN tile of f32 sums c (row stride BN + 1) whose
 // first pixel is m0 and first channel n0. off_px (ROWS ints of shared
 // memory) takes each row's offset in the NCHW tensors, so the per-element
@@ -201,7 +258,7 @@ __device__ void epilogue_tile(const float* c, int* off_px, int m0, int n0, const
 #pragma unroll
       for (int j = 0; j < 8; ++j)
         v[j] = activate<T>(round_to<T>(c[r * ldc + 8 * g + j]), iv[j], of[j]);
-      store8(&e.act[(size_t)(m0 + r) * e.cout + n0 + 8 * g], v);
+      put_act8(e.act, (size_t)e.m * e.cout, (size_t)(m0 + r) * e.cout + n0 + 8 * g, v);
     }
   }
   if (ROWS % 8 == 0 && e.hw % 8 == 0) {
@@ -246,7 +303,8 @@ __global__ void __launch_bounds__(256) fcb_prologue(const T* __restrict__ x,
   }
   __syncthreads();
   for (int r = ty; r < 32; r += 8) {
-    if (m0 + r < m_total) act[(size_t)(m0 + r) * kC + c0 + tx] = from_f32<T>(tile[tx][r]);
+    if (m0 + r < m_total)
+      put_act(act, (size_t)m_total * kC, (size_t)(m0 + r) * kC + c0 + tx, tile[tx][r]);
   }
 }
 
@@ -254,13 +312,19 @@ template <typename T> struct Pair;
 template <> struct Pair<float> {
   typedef float2 V;
   static __device__ __forceinline__ float2 unpack(V v) { return v; }
-  static __device__ __forceinline__ V pack(float a, float b) { return make_float2(a, b); }
+  // act[i], act[i + 1] = a, b as put_act writes them (both planes)
+  static __device__ __forceinline__ void put(float* act, size_t plane, size_t i, float a,
+                                             float b) {
+    const float ha = tf32(a), hb = tf32(b);
+    *reinterpret_cast<float2*>(act + i) = make_float2(ha, hb);
+    *reinterpret_cast<float2*>(act + plane + i) = make_float2(tf32(a - ha), tf32(b - hb));
+  }
 };
 template <> struct Pair<bf16> {
   typedef __nv_bfloat162 V;
   static __device__ __forceinline__ float2 unpack(V v) { return __bfloat1622float2(v); }
-  static __device__ __forceinline__ V pack(float a, float b) {
-    return __floats2bfloat162_rn(a, b);
+  static __device__ __forceinline__ void put(bf16* act, size_t, size_t i, float a, float b) {
+    *reinterpret_cast<V*>(act + i) = __floats2bfloat162_rn(a, b);
   }
 };
 
@@ -292,8 +356,8 @@ __global__ void __launch_bounds__(256) fcb_prologue_pairs(const T* __restrict__ 
   __syncthreads();
   for (int r = ty; r < 64; r += 8) {
     if (m0 + r < m_total)
-      *reinterpret_cast<V*>(&act[(size_t)(m0 + r) * kC + c0 + 2 * tx]) =
-          Pair<T>::pack(tile[2 * tx][r], tile[2 * tx + 1][r]);
+      Pair<T>::put(act, (size_t)m_total * kC, (size_t)(m0 + r) * kC + c0 + 2 * tx,
+                   tile[2 * tx][r], tile[2 * tx + 1][r]);
   }
 }
 
@@ -522,121 +586,246 @@ __global__ void __launch_bounds__(kWgThreads) fcb_stage_wgmma(const Gemm<bf16> g
   epilogue_tile<bf16, BN, kBM>(c, off_px, m0, n0, g.epi, tid, kWgThreads);
 }
 
-// ---- float32: register-blocked FMAs ----------------------------------------
+// ---- float32: three TF32 products on wgmma ---------------------------------
 
-__device__ __forceinline__ float part(const float4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+// d(64xN, f32) = A(64x8) B(8xN) + (scale_d ? d : 0), TF32 from shared
+// memory, both K-major
+__device__ __forceinline__ void wgmma_tf32_64x64x8(float (&d)[32], uint64_t da, uint64_t db,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// One f32 stage tile (or split partial): as the bf16 one, with K steps of
-// (tap, 16 channels). Thread (tm = tid / 8, tn = tid % 8) sums pixels
-// tm + 16 i (i < 8) x channels 4 tn + j and 32 + 4 tn + j (j < 4). A sits
-// pixel-major in shared memory, rows of 16 channels padded to 20 (the 4
-// rows a warp reads at once land on distinct banks), so a thread reads 4
-// channels of a pixel as one float4: per 4 channels 8 float4 loads of A and
-// 8 of B for 256 FMAs. Copies: A rows tid / 4 + 32 j (j < 4), 16 bytes at
-// column tid % 4; B rows (input channels) tid / 16 + 8 j (j < 2), 16 bytes
-// at column tid % 16.
-__global__ void __launch_bounds__(kFThreads) fcb_stage_f32(const Gemm<float> g) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
+__device__ __forceinline__ void wgmma_tf32_64x128x8(float (&d)[64], uint64_t da, uint64_t db,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_64x256x8(float (&d)[128], uint64_t da, uint64_t db,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "
+      "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, "
+      "%82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
+      "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, "
+      "%126, %127}, "
+      "%128, %129, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]),
+        "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),
+        "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),
+        "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),
+        "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <int N> struct WgmmaTf32;
+template <> struct WgmmaTf32<64> {
+  static __device__ __forceinline__ void run(float* d, uint64_t da, uint64_t db, int scale_d) {
+    wgmma_tf32_64x64x8(*reinterpret_cast<float(*)[32]>(d), da, db, scale_d);
+  }
+};
+template <> struct WgmmaTf32<128> {
+  static __device__ __forceinline__ void run(float* d, uint64_t da, uint64_t db, int scale_d) {
+    wgmma_tf32_64x128x8(*reinterpret_cast<float(*)[64]>(d), da, db, scale_d);
+  }
+};
+template <> struct WgmmaTf32<256> {
+  static __device__ __forceinline__ void run(float* d, uint64_t da, uint64_t db, int scale_d) {
+    wgmma_tf32_64x256x8(*reinterpret_cast<float(*)[128]>(d), da, db, scale_d);
+  }
+};
+
+// One float32 stage tile (or, with g.ws, one split's partial of it): as the
+// bf16 one, with K steps of (32-channel chunk, tap). A slot holds the step's A
+// hi plane (128 rows of 128 bytes), its lo plane, and its weight slab: BN hi
+// rows, then BN lo rows. Every thread copies 4 A rows of each plane and
+// BN / 16 B rows (16 bytes of each) a step: rows tid / 8 + 32 j, column
+// tid % 8, stored at column (tid % 8) ^ (row % 8): the 128-byte swizzle.
+// Warpgroup g owns pixels m0 + 64 g .. + 63. The products of kSumSteps K
+// steps go to BN tensor-core sums a thread, the big products' half
+// acc[0, BN / 2) and the small products' acc[BN / 2, BN), started afresh;
+// then both halves are added into sum[BN / 2] on the CUDA cores. The tensor
+// cores' own sums are less exact than float32's rounded adds: carried
+// through a whole K loop of up to 72 steps, they read 6.7x the worst error
+// of the float32 composition (cuDNN) against float64 at 64x64 on an H100;
+// rounded into float32 every 2 steps, 0.47x.
+template <int BN>
+__global__ void __launch_bounds__(kWgThreads, 1) fcb_stage_tf32(const Gemm<float> g) {
+  using Tile = TfTile<BN>;
+  constexpr int kStages = Tile::kStages, kStageBytes = Tile::kStageBytes;
+  constexpr int kAhead = Tile::kAhead;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const int tid = threadIdx.x;
-  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN, split = blockIdx.z;
+  const int m0 = blockIdx.x * kBM, split = blockIdx.z;   // BN = cout: one tile spans N
   const int k0 = split * g.kchunk, k1 = min(g.ksteps, k0 + g.kchunk);
-  const int m_total = g.epi.m, h = g.h, w = g.w_, cout = g.epi.cout;
-  const int nchunk = g.cin / kFK;
-  const int acol = tid & 3, arow0 = tid >> 2;
-  const int bcol = tid & 15, brow0 = tid >> 4;
+  const int m_total = g.epi.m, h = g.h, w = g.w_;
+  const int nchunk = g.cin / kTK;
+  const size_t a_plane = (size_t)m_total * g.cin;
+  const int col = tid & 7, row0 = tid >> 3;
   RowCoords<4> rc;
-  rc.init(m0, arow0, 32, m_total, g.epi.hw, w);
+  rc.init(m0, row0, 32, m_total, g.epi.hw, w);
 
   auto load = [&](int step, int slot) {
-    const int tap = step / nchunk, cc = step - tap * nchunk;
+    const int cc = step / 9, tap = step - cc * 9;
+    const int slab = tap * nchunk + cc;
     const int dy = tap / 3 - 1, dx = tap % 3 - 1;
-    float* sa = smem + slot * kFStageFloats;
-    float* sb = sa + kBM * kAStride;
+    uint8_t* sa = smem + slot * kStageBytes;
+    uint8_t* sb = sa + 2 * kAPlane;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int r = arow0 + 32 * j;
+      const int r = row0 + 32 * j;
       const bool ok = rc.ok(j, dy, dx, h, w);
-      const float* src = ok ? g.a + (size_t)(m0 + r + dy * w + dx) * g.cin + cc * kFK + acol * 4
-                            : g.a;
-      cp_async16(sa + r * kAStride + acol * 4, src, ok);
+      const float* src =
+          g.a + (ok ? (size_t)(m0 + r + dy * w + dx) * g.cin + cc * kTK + col * 4 : 0);
+      const int o = r * 128 + ((col ^ (r & 7)) << 4);
+      cp_async16(sa + o, src, ok);
+      cp_async16(sa + kAPlane + o, ok ? src + a_plane : g.a, ok);
     }
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int kr = brow0 + 8 * j;
-      const float* src = g.w + ((size_t)(cc * kFK + kr) * 9 + tap) * cout + n0 + bcol * 4;
-      cp_async16(sb + kr * kBN + bcol * 4, src, true);
+    for (int j = 0; j < 2 * BN / 32; ++j) {
+      const int r = row0 + 32 * j;
+      const float* src = g.w + ((size_t)slab * 2 * BN + r) * kTK + col * 4;
+      cp_async16(sb + r * 128 + ((col ^ (r & 7)) << 4), src, true);
     }
   };
 
-  const int tm = tid >> 3, tn = tid & 7;
-  float acc[8][8];
+  float acc[BN], sum[BN / 2];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < BN; ++i) acc[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  for (int i = 0; i < BN / 2; ++i) sum[i] = 0.f;
+  const int wg = tid >> 7;
 
+  // Copies run kAhead = kStages - 1 steps ahead. The copies of step s +
+  // kAhead go into step s - 1's slot, issued after step s's products:
+  // every warpgroup waited for step s - 1's products before the barrier of
+  // step s. (Keeping one step's products in flight instead, with a step
+  // less of copies ahead, read 2 % slower.)
 #pragma unroll
-  for (int s = 0; s < kFStages - 1; ++s) {
+  for (int s = 0; s < kAhead; ++s) {
     if (k0 + s < k1) load(k0 + s, s);
     cp_async_commit();
   }
   for (int step = k0; step < k1; ++step) {
-    const int slot = (step - k0) % kFStages;
-    cp_async_wait<kFStages - 2>();
+    const int slot = (step - k0) % kStages;
+    cp_async_wait<kAhead - 1>();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();
-    const int nxt = step + kFStages - 1;
-    if (nxt < k1) load(nxt, (nxt - k0) % kFStages);
+    const uint32_t a_hi = smem_u32(smem + slot * kStageBytes + wg * 64 * 128);
+    const uint32_t a_lo = a_hi + kAPlane;
+    const uint32_t b = smem_u32(smem + slot * kStageBytes + 2 * kAPlane);
+    const bool fresh = (step - k0) % kSumSteps == 0;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTK / 8; ++kk) {
+      // [a_hi b_hi | a_hi b_lo] (afresh at a sum's first), then a_lo b_hi
+      // into the small half
+      WgmmaTf32<2 * BN>::run(acc, smem_desc(a_hi + kk * 32), smem_desc(b + kk * 32),
+                             kk > 0 || !fresh);
+      WgmmaTf32<BN>::run(acc + BN / 2, smem_desc(a_lo + kk * 32), smem_desc(b + kk * 32), 1);
+    }
+    wgmma_commit();
+    const int nxt = step + kAhead;
+    if (nxt < k1) load(nxt, (nxt - k0) % kStages);
     cp_async_commit();
-    const float* sa = smem + slot * kFStageFloats;
-    const float* sb = sa + kBM * kAStride;
+    wgmma_wait0();
+    if ((step - k0) % kSumSteps == kSumSteps - 1 || step == k1 - 1) {
 #pragma unroll
-    for (int k4 = 0; k4 < kFK; k4 += 4) {
-      float4 a4[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        a4[i] = *reinterpret_cast<const float4*>(&sa[(tm + 16 * i) * kAStride + k4]);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const float4 b0 = *reinterpret_cast<const float4*>(&sb[(k4 + kk) * kBN + tn * 4]);
-        const float4 b1 = *reinterpret_cast<const float4*>(&sb[(k4 + kk) * kBN + 32 + tn * 4]);
-        const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const float a = part(a4[i], kk);
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a, b[j], acc[i][j]);
-        }
-      }
+      for (int i = 0; i < BN / 2; ++i) sum[i] += acc[i] + acc[BN / 2 + i];
     }
   }
   cp_async_wait<0>();
   __syncthreads();
 
+  // sum's layout: the bf16 stage's accumulator layout
+  const int lane = tid & 31, wq = (tid & 127) >> 5;
+  const int row = wg * 64 + wq * 16 + (lane >> 2), cq = (lane & 3) * 2;
   if (g.ws != nullptr) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int m = m0 + tm + 16 * i;
-      if (m >= m_total) continue;
-      float* dst = &g.ws[((size_t)split * m_total + m) * cout + n0];
-      *reinterpret_cast<float4*>(dst + tn * 4) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-      *reinterpret_cast<float4*>(dst + 32 + tn * 4) =
-          make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
-    }
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int m = m0 + row + 8 * hh, i = 4 * j + 2 * hh;
+        if (m < m_total)
+          *reinterpret_cast<float2*>(&g.ws[((size_t)split * m_total + m) * BN + j * 8 + cq]) =
+              make_float2(sum[i], sum[i + 1]);
+      }
     return;
   }
-  float* c = smem;
-  int* off_px = reinterpret_cast<int*>(c + kBM * kLdc);
+  float* c = reinterpret_cast<float*>(smem);
+  int* off_px = reinterpret_cast<int*>(c + kBM * (BN + 1));
+  constexpr int ldc = BN + 1;
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      c[(tm + 16 * i) * kLdc + (j < 4 ? tn * 4 + j : 32 + tn * 4 + j - 4)] = acc[i][j];
+    for (int hh = 0; hh < 2; ++hh) {
+      const int i = 4 * j + 2 * hh;
+      c[(row + 8 * hh) * ldc + j * 8 + cq] = sum[i];
+      c[(row + 8 * hh) * ldc + j * 8 + cq + 1] = sum[i + 1];
+    }
   __syncthreads();
-  epilogue_tile<float, kBN, kBM>(c, off_px, m0, n0, g.epi, tid, kFThreads);
+  epilogue_tile<float, BN, kBM>(c, off_px, m0, 0, g.epi, tid, kWgThreads);
 }
 
 // The split-K pass over a 4-pixel x 64-channel tile, one element a thread
@@ -671,42 +860,52 @@ __global__ void __launch_bounds__(256) fcb_splitk_reduce(const float* __restrict
 
 // ---- launch ------------------------------------------------------------------
 
-int launch_gemm(const Gemm<float>& g, dim3 grid, cudaStream_t st) {
-  fcb_stage_f32<<<grid, kFThreads, kFSmem, st>>>(g);
-  return (int)cudaGetLastError();
-}
-
 constexpr int kMaxDevices = 64;
 
-template <int BN>
-int launch_wgmma(const Gemm<bf16>& g, dim3 grid, cudaStream_t st) {
-  // the shared-memory attribute belongs to each device's context: set it
-  // once a card
-  static bool attr_set[kMaxDevices] = {};
+// Let `kernel` take `bytes` of dynamic shared memory. The attribute belongs
+// to each device's context: set it once a card (`done`, one flag a card for
+// each kernel).
+int allow_smem(const void* kernel, int bytes, bool (&done)[kMaxDevices]) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
   if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (!attr_set[dev]) {
-    e = cudaFuncSetAttribute(
-        fcb_stage_wgmma<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, WgTile<BN>::kSmem);
+  if (!done[dev]) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return (int)e;
-    attr_set[dev] = true;
+    done[dev] = true;
   }
+  return 0;
+}
+
+template <int BN>
+int launch_tf32(const Gemm<float>& g, dim3 grid, cudaStream_t st) {
+  static bool done[kMaxDevices] = {};
+  const int e = allow_smem((const void*)fcb_stage_tf32<BN>, TfTile<BN>::kSmem, done);
+  if (e) return e;
+  fcb_stage_tf32<BN><<<grid, kWgThreads, TfTile<BN>::kSmem, st>>>(g);
+  return (int)cudaGetLastError();
+}
+
+template <int BN>
+int launch_wgmma(const Gemm<bf16>& g, dim3 grid, cudaStream_t st) {
+  static bool done[kMaxDevices] = {};
+  const int e = allow_smem((const void*)fcb_stage_wgmma<BN>, WgTile<BN>::kSmem, done);
+  if (e) return e;
   fcb_stage_wgmma<BN><<<grid, kWgThreads, WgTile<BN>::kSmem, st>>>(g);
   return (int)cudaGetLastError();
+}
+
+int launch_gemm(const Gemm<float>& g, dim3 grid, cudaStream_t st) {
+  return g.epi.cout == 128 ? launch_tf32<128>(g, grid, st) : launch_tf32<64>(g, grid, st);
 }
 
 int launch_gemm(const Gemm<bf16>& g, dim3 grid, cudaStream_t st) {
   return g.epi.cout == 128 ? launch_wgmma<128>(g, grid, st) : launch_wgmma<64>(g, grid, st);
 }
 
-template <typename T> constexpr int tile_n(int cout);
-template <> constexpr int tile_n<float>(int) { return kBN; }
-template <> constexpr int tile_n<bf16>(int cout) { return cout == 128 ? 128 : kBN; }
-
 template <typename T> constexpr int k_step_channels();
-template <> constexpr int k_step_channels<float>() { return kFK; }
+template <> constexpr int k_step_channels<float>() { return kTK; }
 template <> constexpr int k_step_channels<bf16>() { return kBK; }
 
 // One stage: the GEMM (split over kchunk K steps a block), then, if split,
@@ -726,8 +925,8 @@ int run_stage(const T* a, int cin, const T* wt, int kchunk, float* ws, const Epi
   g.ws = splits > 1 ? ws : nullptr;
   if (splits > 1 && ws == nullptr) return (int)cudaErrorInvalidValue;
   g.epi = epi;
-  const dim3 grid((unsigned)((epi.m + kBM - 1) / kBM),
-                  (unsigned)(epi.cout / tile_n<T>(epi.cout)), (unsigned)splits);
+  // a tile spans the stage's output channels (BN = cout, 128 or 64)
+  const dim3 grid((unsigned)((epi.m + kBM - 1) / kBM), 1, (unsigned)splits);
   int err = launch_gemm(g, grid, st);
   if (err || splits == 1) return err;
   fcb_splitk_reduce<T><<<dim3((unsigned)((epi.m + kRM - 1) / kRM), (unsigned)(epi.cout / kBN)),
@@ -746,7 +945,7 @@ int launch(const void* x, const void* i1, const void* f1, const void* w1,
   auto P = [](const void* p) { return static_cast<const T*>(p); };
   const T* xt = P(x);
   T* ot = static_cast<T*>(out);
-  T* aa = static_cast<T*>(act_a);   // A1 (M, 256), then A3 (M, 64)
+  T* aa = static_cast<T*>(act_a);   // A1 (M, 256), then A3 (M, 64); f32: two planes each
   T* ab = static_cast<T*>(act_b);   // A2 (M, 128)
   float* wsf = static_cast<float*>(ws);
   const int hw = h * w, m = batch * hw;

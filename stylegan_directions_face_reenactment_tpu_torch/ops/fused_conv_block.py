@@ -17,11 +17,18 @@ blocks a module, 56 a FAN pass, 112 a request of the fused default path
 (two FAN passes).
 
 Bound on an H100: operations, 811,008 FLOP a block-pixel against 2 KB of
-f32 activations (about 400 FLOP a byte). ``csrc/fused_conv_block.cu`` says
-what its design does about that: a prologue pass writes the first stage's
-activation channels-innermost, and each stage is an implicit GEMM (``wgmma``
-in bf16, register-blocked FMAs in float32) over the pixels of all images
-whose epilogue writes its slice of ``out`` and the next stage's activation.
+f32 activations (about 400 FLOP a byte). float32 runs three TF32 products
+for each product (``a_hi·b_hi + a_hi·b_lo + a_lo·b_hi``, each operand split
+into ``hi = tf32(v)`` and ``lo = tf32(v − hi)``), so that it holds to f32
+tolerance: its floor is 3 × 811,008 FLOP a block-pixel at the TF32 dense
+rate, 495 TFLOP/s. ``csrc/fused_conv_block.cu`` says what its design does
+about that: a prologue pass writes the first stage's activation
+channels-innermost, and each stage is an implicit GEMM on the tensor cores
+(``wgmma``, bf16 or TF32) over the pixels of all images whose epilogue
+writes its slice of ``out`` and the next stage's activation. In float32
+the splits are made where the operands are written: the activations as a
+hi and a lo plane, the weights once, when they are packed
+(:func:`kernel_weight`).
 :func:`schedule` is the table that splits a small map's K loop across
 blocks; :func:`scratch_layout` places the activations and the split-K
 partials in one scratch buffer that the wrapper allocates.
@@ -90,20 +97,37 @@ def fused_convblock_enabled(p, x: torch.Tensor) -> bool:
             and x.shape[1] == CHANNELS)
 
 
+def tf32_split(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """float32 ``v`` as ``(hi, lo)``: ``hi = tf32(v)`` (10 mantissa bits, the
+    low 13 bits zero, ties away from zero as ``cvt.rna.tf32.f32``) and ``lo =
+    tf32(v − hi)``, so ``hi + lo`` is ``v`` within 2^-21·|v|."""
+    def tf32(t):
+        bits = t.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+    hi = tf32(v)
+    return hi, tf32(v - hi)
+
+
 def kernel_weight(w: torch.Tensor) -> torch.Tensor:
-    """An OIHW 3×3 weight in the kernel's layout: float32 (cin, 3, 3, cout),
-    a K step's 16 input channels × 64 output channels as rows of contiguous
-    output channels; bf16 (9, cin / 64, cout, 64), one (tap, 64-channel
-    chunk) slab a K step, each output channel's 64 input channels one
-    128-byte row (``wgmma``'s K-major B operand)."""
+    """An OIHW 3×3 weight in the kernel's layout, one K-major slab a K step
+    (tap, channel chunk), each output channel's chunk one 128-byte row
+    (``wgmma``'s B operand): bf16 (9, cin / 64, cout, 64); float32 split
+    into its TF32 hi and lo parts (:func:`tf32_split`), (9, cin / 32, 2,
+    cout, 32), a step's cout hi rows and then its cout lo rows."""
+    cout, cin = w.shape[:2]
+    kc = k_step_channels(w.dtype)
+
+    def slabs(t):
+        return t.reshape(cout, cin // kc, kc, 9).permute(3, 1, 0, 2)
     if w.dtype == torch.bfloat16:
-        cout, cin = w.shape[:2]
-        return w.reshape(cout, cin // 64, 64, 9).permute(3, 1, 0, 2).contiguous()
-    return w.permute(1, 2, 3, 0).contiguous()
+        return slabs(w).contiguous()
+    hi, lo = tf32_split(w)
+    return torch.stack((slabs(hi), slabs(lo)), dim=2).contiguous()
 
 
 def _kernel_weight_shape(cin: int, cout: int, dtype: torch.dtype) -> Tuple[int, ...]:
-    return (9, cin // 64, cout, 64) if dtype == torch.bfloat16 else (cin, 3, 3, cout)
+    kc = k_step_channels(dtype)
+    return (9, cin // kc, cout, kc) if dtype == torch.bfloat16 else (9, cin // kc, 2, cout, kc)
 
 
 # --- the schedule table ------------------------------------------------------
@@ -116,10 +140,11 @@ MAX_SPLITS = 36                              # more partials cost more than they
 
 def target_blocks(dtype: torch.dtype) -> int:
     """The blocks a stage with few tiles is split to put on the card: one an
-    SM in bf16, two in float32 (its 128-thread blocks fit three an SM, but
-    more partials cost more than the third gains). Chosen from split sweeps
-    on the H100 (``tune_k3_splits.py``)."""
-    return SMS if dtype == torch.bfloat16 else 2 * SMS
+    SM in bf16; in float32, whose ring of hi and lo slots fills an SM's
+    shared memory, 128, so that a 32-tile stage splits 4 ways and not 6
+    (the partials cost more than the last few SMs gain). Chosen from split
+    sweeps on the H100 (``tune_k3_splits.py``)."""
+    return SMS if dtype == torch.bfloat16 else 128
 
 
 def full_wave(dtype: torch.dtype) -> int:
@@ -127,16 +152,10 @@ def full_wave(dtype: torch.dtype) -> int:
     return 3 * target_blocks(dtype) // 4
 
 
-def tile_n(cout: int, dtype: torch.dtype) -> int:
-    """Output channels of a block tile: 128 for bf16's 128-channel first
-    stage (``wgmma`` m64n128), 64 otherwise."""
-    return 128 if dtype == torch.bfloat16 and cout == 128 else 64
-
-
 def k_step_channels(dtype: torch.dtype) -> int:
     """Input channels of one K step (a K step is one tap of that many
-    channels): 64 in bf16 (a 128-byte ``wgmma`` row), 16 in float32."""
-    return 64 if dtype == torch.bfloat16 else 16
+    channels): one 128-byte ``wgmma`` row, 64 in bf16 and 32 in float32."""
+    return 64 if dtype == torch.bfloat16 else 32
 
 
 class K3Schedule(NamedTuple):
@@ -162,7 +181,7 @@ def schedule(batch: int, h: int, w: int, dtype: torch.dtype) -> K3Schedule:
     m_tiles = -(-m // TILE_M)
     kchunk, splits, blocks, ws = [], [], [], 0
     for cin, cout in STAGES:
-        tiles = m_tiles * (cout // tile_n(cout, dtype))
+        tiles = m_tiles     # a tile spans the stage's output channels, in both dtypes
         ksteps = 9 * cin // k_step_channels(dtype)
         if tiles >= full_wave(dtype):
             chunk = ksteps
@@ -250,13 +269,15 @@ def _check(x: torch.Tensor, args: K3Args) -> None:
 def scratch_layout(batch: int, h: int, w: int, dtype: torch.dtype) -> Tuple[int, int, int]:
     """Byte offsets in K3's one scratch buffer of the NHWC activations
     A1 (then A3) and A2 and of the split-K partials, and its size:
-    ``(act_b, ws, total)`` (A1 at 0), each part 256-byte aligned."""
+    ``(act_b, ws, total)`` (A1 at 0), each part 256-byte aligned. A float32
+    activation is two planes, its TF32 hi and lo parts."""
     m, es = batch * h * w, torch.empty((), dtype=dtype).element_size()
+    planes = 1 if dtype == torch.bfloat16 else 2
 
     def up(n):
         return -(-n // 256) * 256
-    act_b = up(m * 256 * es)
-    ws = act_b + up(m * 128 * es)
+    act_b = up(planes * m * 256 * es)
+    ws = act_b + up(planes * m * 128 * es)
     return act_b, ws, ws + 4 * schedule(batch, h, w, dtype).workspace
 
 

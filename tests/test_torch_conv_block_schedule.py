@@ -6,10 +6,13 @@ against the plain version and the JAX package's block.
 The emulation follows ``csrc/fused_conv_block.cu``: the first stage's
 activation made channels-innermost (NHWC) by a prologue; each stage a GEMM
 over the pixels of all images whose K steps are (tap, channel chunk)
-slices read from the packed weights; the K steps of a split summed in f32,
-the splits added in split order; the epilogue rounding the sum to the
-activation dtype, adding x for ``out`` and folding the next stage's
-activation from the rounded sum.
+slices read from the packed weights (bf16 tap by tap, float32 chunk by
+chunk); the K steps of a split summed in f32
+(in float32 as three TF32 products of the activation's and the weight's hi
+and lo parts, the big and the small products summed apart and added at the
+split's end), the splits added in split order; the epilogue rounding the
+sum to the activation dtype, adding x for ``out`` and folding the next
+stage's activation from the rounded sum.
 
 Tolerances: against the plain version, float32 1e-5·max(1, max|plain|)
 (sums of up to 2304 products in another order), bf16 1e-2·max(1,
@@ -73,19 +76,26 @@ def emulate(x: torch.Tensor, args: k3.K3Args) -> torch.Tensor:
         wk, nchunk = args.wk[st], cin // kc
         ksteps = 9 * nchunk
         padded = F.pad(act.reshape(b, h, w, cin), (0, 0, 1, 1, 1, 1))
+        a_hi, a_lo = k3.tf32_split(padded) if dtype == torch.float32 else (padded, None)
         parts = []
         for s0 in range(0, ksteps, sched.kchunk[st]):
-            part = torch.zeros(m, cout)
+            big, small = torch.zeros(m, cout), torch.zeros(m, cout)
             for step in range(s0, min(ksteps, s0 + sched.kchunk[st])):
-                tap, cc = divmod(step, nchunk)
-                ky, kx = divmod(tap, 3)
-                a = padded[:, ky:ky + h, kx:kx + w, cc * kc:(cc + 1) * kc].reshape(m, kc)
                 if dtype == torch.bfloat16:
-                    wt = wk[tap, cc].float().t()
+                    tap, cc = divmod(step, nchunk)
                 else:
-                    wt = wk[cc * kc:(cc + 1) * kc, ky, kx, :]
-                part = part + a.float() @ wt
-            parts.append(part)
+                    cc, tap = divmod(step, 9)
+                ky, kx = divmod(tap, 3)
+
+                def rows(t):
+                    return t[:, ky:ky + h, kx:kx + w, cc * kc:(cc + 1) * kc].reshape(m, kc)
+                if dtype == torch.bfloat16:
+                    big = big + rows(a_hi).float() @ wk[tap, cc].float().t()
+                else:
+                    w_hi, w_lo = wk[tap, cc, 0].t(), wk[tap, cc, 1].t()
+                    big = big + rows(a_hi) @ w_hi
+                    small = small + rows(a_hi) @ w_lo + rows(a_lo) @ w_hi
+            parts.append(big + small)
         assert len(parts) == sched.splits[st]
         total = parts[0]
         for p_ in parts[1:]:       # the split-K pass: in split order
@@ -150,7 +160,7 @@ def test_schedule_table_covers_the_main_path(batch, dtype):
         ws = 0
         for st, (cin, cout) in enumerate(k3.STAGES):
             ksteps, chunk, n = _ksteps(cin, dtype), s.kchunk[st], s.splits[st]
-            tiles = m_tiles * cout // k3.tile_n(cout, dtype)
+            tiles = m_tiles         # a tile spans the stage's output channels
             assert 1 <= chunk <= ksteps and n == -(-ksteps // chunk)
             assert (n - 1) * chunk < ksteps <= n * chunk
             assert s.blocks[st] == tiles * n
@@ -176,6 +186,33 @@ def test_scratch_layout():
         assert act_b % 256 == 0 and ws % 256 == 0
         assert act_b >= m * 256 * es and ws - act_b >= m * 128 * es
         assert total - ws == 4 * k3.schedule(b, h, w, dtype).workspace
+
+
+def test_f32_packing_is_a_tf32_hi_lo_pair():
+    """A float32 K step (tap, 32-channel chunk) reads one contiguous (2,
+    cout, 32) slab: the TF32 hi part of w[co, 32·cc : 32·cc + 32, ky, kx] in
+    row co, its lo part in row cout + co; hi has its 13 low mantissa bits
+    zero, lo is TF32-rounded, and hi + lo is w within 2^-21·|w|."""
+    w = torch.randn(64, 128, 3, 3, generator=torch.Generator().manual_seed(3))
+    w[0, 0] = torch.tensor([[0.0, -1.0, 3e-30], [1 + 2 ** -11, -(1 + 3 * 2 ** -11), 7.0],
+                            [2 ** -20, 1e-3, -5.5e4]])
+    pk = k3.kernel_weight(w)
+    assert pk.shape == k3._kernel_weight_shape(128, 64, torch.float32) == (9, 4, 2, 64, 32)
+    assert pk.is_contiguous() and pk.dtype == torch.float32
+    hi, lo = pk[:, :, 0], pk[:, :, 1]
+    low13 = (1 << 13) - 1
+    assert not (hi.view(torch.int32) & low13).any()
+    assert not (lo.view(torch.int32) & low13).any()
+    for tap in (0, 4, 8):
+        for cc in (0, 3):
+            ky, kx = divmod(tap, 3)
+            want = w[:, 32 * cc:32 * cc + 32, ky, kx]
+            got = (hi[tap, cc].double() + lo[tap, cc].double())
+            assert bool(((got - want.double()).abs() <= 2.0 ** -21 * want.double().abs()).all())
+    # ties round away from zero, as cvt.rna.tf32.f32 does
+    assert float(hi[3, 0, 0, 0]) == 1 + 2 ** -10 and float(lo[3, 0, 0, 0]) == -(2 ** -11)
+    assert float(hi[4, 0, 0, 0]) == -(1 + 2 ** -9) and float(lo[4, 0, 0, 0]) == 2 ** -11
+    assert float(hi[1, 0, 0, 0]) == -1.0 and float(lo[1, 0, 0, 0]) == 0.0
 
 
 def test_bf16_packing_is_one_slab_a_k_step():

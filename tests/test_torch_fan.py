@@ -202,7 +202,7 @@ def test_block_args_follow_weight_changes():
     assert b is not a
     torch.testing.assert_close(b.inv[1], torch.full((128,), (4.0 + 1e-5) ** -0.5),
                                rtol=1e-6, atol=0)
-    assert b.wk[0].shape == (256, 3, 3, 128) and b.wk[0].is_contiguous()
+    assert b.wk[0].shape == (9, 8, 2, 128, 32) and b.wk[0].is_contiguous()
 
 
 def test_block_args_kept_for_a_frozen_block_with_grad_on():
@@ -236,12 +236,17 @@ def test_state_dict_keeps_the_reference_key_layout(fans):
 
 
 def test_kernel_weight_layouts():
-    """K3's packed weights hold w[co, ci, ky, kx] at (ci, ky, kx, co) in
-    float32 and at (3·ky + kx, ci // 64, co, ci % 64) in bf16."""
+    """K3's packed weights hold w[co, ci, ky, kx] as its TF32 hi and lo parts
+    at (3·ky + kx, ci // 32, 0 and 1, co, ci % 32) in float32 and at (3·ky +
+    kx, ci // 64, co, ci % 64) in bf16."""
     w = torch.randn(64, 128, 3, 3)
     f = k3.kernel_weight(w)
-    assert f.shape == (128, 3, 3, 64) and f.is_contiguous()
-    assert f[37, 2, 1, 5] == w[5, 37, 2, 1]
+    assert f.shape == (9, 4, 2, 64, 32) and f.is_contiguous()
+    for co, ci, ky, kx in [(5, 37, 2, 1), (63, 127, 0, 0), (0, 64, 1, 2)]:
+        hi, lo = f[3 * ky + kx, ci // 32, :, co, ci % 32]
+        assert hi == k3.tf32_split(w[co, ci, ky, kx])[0]
+        assert abs(float(hi) + float(lo) - float(w[co, ci, ky, kx])) <= 2 ** -21 * abs(
+            float(w[co, ci, ky, kx]))
     wb = w.bfloat16()
     b = k3.kernel_weight(wb)
     assert b.shape == (9, 2, 64, 64) and b.is_contiguous()

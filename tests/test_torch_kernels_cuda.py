@@ -223,6 +223,32 @@ def test_fused_conv_block_runs_are_bit_equal(card, shape, dtype):
     assert torch.equal(k3.fused_conv_block_cuda(x, args), k3.fused_conv_block_cuda(x, args))
 
 
+@pytest.mark.parametrize("shape", [(16, 256, 64, 64), (16, 256, 4, 4)], ids=str)
+def test_fused_conv_block_f32_is_three_tf32_products(card, shape):
+    """float32 K3 sums three TF32 products a product, not one: against the
+    plain version in float64, its worst error is at most 4× that of the
+    plain float32 version (cuDNN, TF32 off) and at most 1/16 of that of one
+    TF32 pass (the cuDNN composition with ``allow_tf32``)."""
+    args = _k3_args(card, torch.float32, seed=9)
+    x = torch.randn(shape, generator=torch.Generator(device=card).manual_seed(10), device=card)
+    want = k3.fused_conv_block_plain(x.double(), k3.K3Args(
+        *(tuple(t.double() for t in group) for group in args)))
+
+    def err(got):
+        return float((got.double() - want).abs().max())
+    kernel = err(k3.fused_conv_block_cuda(x, args))
+    f32 = err(k3.fused_conv_block_plain(x, args))
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32 = err(k3.fused_conv_block_plain(x, args))
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    print(f"K3 {shape} float32 worst error against float64: kernel {kernel:.3g}, "
+          f"cuDNN float32 {f32:.3g}, cuDNN TF32 {tf32:.3g}")
+    assert kernel <= 4 * f32, (kernel, f32)
+    assert kernel <= tf32 / 16, (kernel, tf32)
+
+
 def test_fused_conv_block_refuses_grad(card):
     """A CUDA input or weight that needs a gradient no longer raises: the
     kernel runs forward (one launch) and its backward recomputes the plain
