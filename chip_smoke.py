@@ -9,8 +9,8 @@ and nothing of JAX or the JAX package. Phases, in order; any failure exits
 non-zero without printing the last line:
 
 1. device: the card's name, count, power limit;
-2. build: K1 (upfirdn2d), K2 (fused bias-act) and K3 (the FAN ConvBlock)
-   from ``csrc/`` with nvcc, with each kernel's registers and shared memory;
+2. build: K1 (upfirdn2d), K2 (fused bias-act), K3 (the FAN ConvBlock)
+   and K4 (StyleGAN3's filtered leaky ReLU) from ``csrc/`` with nvcc, with each kernel's registers and shared memory;
 3. kernel parity: each kernel against its plain PyTorch version on the card
    at every shape the serving paths give it (a batch of 16), float32 and
    bf16, TF32 off; K3 also at the batch-1 shapes of the source's DECA and at
@@ -134,14 +134,23 @@ non-zero without printing the last line:
     result), ``shape_visualization`` and ``deca_encode(with_detail=True)``
     at B = 16, and one frame card against CPU.
 
-Phases 10-20 run last, so that the readings of 1-8 keep the conditions
+21. [k4] (K4, StyleGAN3's filtered leaky ReLU): ``sdfr::filtered_lrelu``
+    against its plain version at every layer shape of the published
+    StyleGAN3-T at a chunk of 16, float32 and bf16 (per-plane scales on
+    every other layer), and each instantiation zero-padded to 24 taps at a
+    small shape; its device ms, host µs, call ms, plain ms and bound over a
+    chunk's 15 calls; its launches (15) and plans made (0) in a second
+    StyleGAN3-T chunk through ``make_reenact_fn``, whose images are held
+    against the plain version's synthesis of the same latents.
+
+Phases 10-21 run last, so that the readings of 1-8 keep the conditions
 they were first recorded in.
 
 The last two lines are the kernels' numbers and ``{"ok": true, ...}``.
 ``python3 chip_smoke.py --only ddp mesh stats report`` runs phases 14-17
 alone (``ddp_cards``: [ddp] (a) and (c), for a call with four cards), and
-``--only serve heads`` phases 18-19 and ``--only render`` phase 20, with no
-last line.
+``--only serve heads`` phases 18-19, ``--only render`` phase 20 and
+``--only k4`` phase 21, with no last line.
 """
 
 import copy
@@ -4113,6 +4122,247 @@ def phase_heads(smi):
     return launches
 
 
+K4_BATCH = BATCH                        # a StyleGAN3-T chunk's frames
+# K4 against its plain version, relative to max(1, max|plain|): float32, the
+# kernel sums each 1-D pass in the plain version's tap order, cuDNN's
+# depthwise passes may not (two chained FIRs of up to 24 taps); bf16, both
+# sum in float32 from the same bf16 input and round once. A misplaced tile,
+# halo or phase moves outputs by about their own size.
+K4_F32_TOL, K4_BF16_TOL = 2e-5, 1e-2
+K4_CHUNK_TOL = 2e-4                     # a chunk with K4 vs with the plain version, of max
+K4_PLAIN_SLICE = 4                      # frames a plain call at parity (its planes are 4x)
+# (up, down, taps of fu, taps of fd) that run the kernel's instantiations
+# zero-padded to 24 taps: every (up, down) pair at counts no published layer
+# has, 24 taps included; (name, planes, in size, pad) of each
+K4_GENERIC = (((1, 1, 5, 7), 5, 37, (3, 2, 3, 2)), ((1, 2, 3, 12), 6, 45, (5, 6, 5, 6)),
+              ((2, 1, 12, 5), 7, 29, (7, 6, 7, 6)), ((2, 2, 8, 24), 5, 41, (12, 11, 12, 11)),
+              ((4, 1, 24, 3), 6, 23, (13, 12, 13, 12)),
+              ((4, 2, 16, 10), 7, 33, (14, 11, -3, 9)))
+
+
+def k4_layers():
+    """(name, layer) of the published StyleGAN3-T (``configs/models_config.py``'s
+    ``ffhq_sg3t``), built on the CPU for its schedule alone."""
+    from stylegan_directions_face_reenactment_tpu_torch.models import stylegan3 as sg3
+    g = sg3.Generator()
+    return list(zip(g.layer_names, g.layers()))
+
+
+def k4_args(m, idx):
+    """The K4 arguments of layer ``m`` (the ``idx``-th) after its input:
+    (fu, fd, up, down, pad, gain, slope, clamp), the ToRGB's linear call
+    with the output scale folded in."""
+    if m.is_torgb:
+        return m.up_taps, m.down_taps, m.up, m.down, m.padding, 0.25, 1.0, 64.0
+    return m.up_taps, m.down_taps, m.up, m.down, m.padding, 2 ** 0.5, 0.2, 256.0
+
+
+def k4_inputs(m, idx, dtype, gen, batch=K4_BATCH):
+    """(x, bias, scales) of layer ``m`` at ``batch``: the conv output of the
+    layer (its input size padded by the kernel), three times unit normal so
+    that the clamp bites; per-plane scales on every other layer (the
+    demodulation and the next layer's styles)."""
+    hw = m.in_size + m.conv_kernel - 1
+    x = (3 * torch.randn(batch, m.out_channels, hw, hw, generator=gen, device="cuda")).to(dtype)
+    b = torch.randn(m.out_channels, generator=gen, device="cuda")
+    scales = {} if idx % 2 else dict(
+        in_scale=torch.rand(batch, m.out_channels, generator=gen, device="cuda") + 0.5,
+        out_scale=torch.rand(batch, m.out_channels, generator=gen, device="cuda") + 0.5)
+    return x, b, scales
+
+
+def k4_work(shape, ku, kd, up, down, pad, itemsize):
+    """(FLOPs, bytes) of one K4 call: 2 × the polyphase FIR FMAs (the x and
+    y passes of the upsampling at ku / up taps a sample, of the downsampling
+    at kd taps; no zero-stuffed tap counted), the input read once and the
+    output written once."""
+    from stylegan_directions_face_reenactment_tpu_torch.ops.filtered_lrelu import output_shape
+    from stylegan_directions_face_reenactment_tpu_torch.ops.upfirdn2d import normalize_pad
+    n, c, h, w = shape
+    px0, px1, py0, py1 = normalize_pad(pad)
+    h1, w1 = h * up + py0 + py1 - ku + 1, w * up + px0 + px1 - ku + 1
+    oh, ow = output_shape(h, w, ku, kd, up, down, pad)
+    fmas = (h * w1 + h1 * w1) * ku / up + (h1 * ow + oh * ow) * kd
+    return 2.0 * n * c * fmas, float(n * c * (h * w + oh * ow) * itemsize + 4 * c)
+
+
+def k4_plain_sliced(x, args, b, scales):
+    """The plain version, K4_PLAIN_SLICE frames a call (its upsampled plane
+    of a chunk at L10 is 23.7 GB)."""
+    from stylegan_directions_face_reenactment_tpu_torch.ops.filtered_lrelu import (
+        filtered_lrelu_plain)
+    fu, fd, up, down, pad, gain, slope, clamp = args
+    out = []
+    for i in range(0, x.shape[0], K4_PLAIN_SLICE):
+        s = {k: v[i:i + K4_PLAIN_SLICE] for k, v in scales.items()}
+        out.append(filtered_lrelu_plain(x[i:i + K4_PLAIN_SLICE], fu, fd, b, up, down, pad,
+                                        gain, slope, clamp, **s))
+    return torch.cat(out)
+
+
+def k4_parity():
+    """K4 against its plain version at every published layer shape at a
+    chunk of K4_BATCH, float32 and bf16, and each generic instantiation at
+    a small shape; returns the largest float32 error."""
+    from stylegan_directions_face_reenactment_tpu_torch.ops.filtered_lrelu import (
+        filtered_lrelu_cuda, filtered_lrelu_plain, instantiated_taps)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    worst = 0.0
+
+    def held(label, got, want, dtype):
+        nonlocal worst
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        scale = max(1.0, float(want.float().abs().max()))
+        lim = (K4_F32_TOL if dtype == torch.float32 else K4_BF16_TOL) * scale
+        print(f"[k4] parity {label} {str(dtype)[6:]}: max abs err {err:.3g} (limit "
+              f"{lim:.3g}; max|plain| {scale:.3g})")
+        need(got.shape == want.shape and got.dtype == dtype and err <= lim,
+             f"filtered_lrelu {label} {dtype} disagrees with its plain version")
+        if dtype == torch.float32:
+            worst = max(worst, err)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for idx, (name, m) in enumerate(k4_layers()):
+            x, b, scales = k4_inputs(m, idx, dtype, gen)
+            args = k4_args(m, idx)
+            got = filtered_lrelu_cuda(x, args[0], args[1], b, *args[2:], **scales)
+            held(f"{name} {tuple(x.shape)} -> {tuple(got.shape)}", got,
+                 k4_plain_sliced(x, args, b, scales), dtype)
+            del x, got
+            torch.cuda.empty_cache()
+        for (up, down, ku, kd), planes, hw, pad in K4_GENERIC:
+            need(instantiated_taps(up, down, ku, kd) == (24 // up, 24),
+                 f"({up}, {down}, {ku}, {kd}) does not take the generic instantiation")
+            x = (3 * torch.randn(1, planes, hw, hw + 3, generator=gen, device="cuda")).to(dtype)
+            fu = torch.rand(ku, generator=gen, device="cuda").cpu() + 0.1
+            fd = torch.rand(kd, generator=gen, device="cuda").cpu() + 0.1
+            b = torch.randn(planes, generator=gen, device="cuda")
+            scales = dict(in_scale=torch.rand(1, planes, generator=gen, device="cuda") + 0.5,
+                          out_scale=torch.rand(1, planes, generator=gen, device="cuda") + 0.5)
+            args = (fu / fu.sum(), fd / fd.sum(), b, up, down, pad, 2 ** 0.5, 0.2, 4.0)
+            got = filtered_lrelu_cuda(x, *args, **scales)
+            held(f"generic up {up} down {down} taps {ku}/{kd} {tuple(x.shape)} -> "
+                 f"{tuple(got.shape)}", got, filtered_lrelu_plain(x, *args, **scales), dtype)
+    return worst
+
+
+def k4_timing(card_name):
+    """Sums over the 15 K4 calls of a chunk of K4_BATCH (TF32 off): the
+    kernel's device ms, host µs and call ms (as phase 4's), the plain
+    version's ms (one pass over the chunk, K4_PLAIN_SLICE frames a call,
+    after warm-ups), the bound."""
+    from stylegan_directions_face_reenactment_tpu_torch.ops.filtered_lrelu import (
+        filtered_lrelu_cuda)
+    bw, flops, _ = card_rates(card_name)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype)[6:]
+        t = {"library_ms": None}
+        for idx, (name, m) in enumerate(k4_layers()):
+            x, b, scales = k4_inputs(m, idx, dtype, gen)
+            fu, fd, up, down, pad, gain, slope, clamp = k4_args(m, idx)
+            ops, nbytes = k4_work(tuple(x.shape), len(fu or (1,)), len(fd or (1,)), up, down,
+                                  pad, x.element_size())
+            bound = 1e3 * max(nbytes / bw, ops / flops)
+
+            def call():
+                return filtered_lrelu_cuda(x, fu, fd, b, up, down, pad, gain, slope, clamp,
+                                           **scales)
+
+            ms, host, call_ms = three_times(call)
+            plain = time_ms(lambda: k4_plain_sliced(x, (fu, fd, up, down, pad, gain, slope,
+                                                        clamp), b, scales), reps=1)
+            torch.cuda.empty_cache()
+            print(f"[k4] timing {name} {tuple(x.shape)} {tag}: kernel device {ms:.4f} ms, "
+                  f"host {host:.2f} us, call {call_ms:.4f} ms; plain {plain:.3f} ms; bound "
+                  f"{bound:.4f} ms ({ops / 1e12:.4f} TFLOP, {nbytes / 1e9:.3f} GB); "
+                  f"kernel/bound {ms / bound:.2f}")
+            add(t, ms=ms, host_us=host, call_ms=call_ms, plain_ms=plain, bound_ms=bound,
+                bytes=nbytes, ops=ops)
+            del x
+        out[("filtered_lrelu", tag)] = t
+        print_sums(f"[k4] filtered_lrelu per chunk of {K4_BATCH} frames, {tag}", t, bw)
+    return out
+
+
+def k4_chunk():
+    """One StyleGAN3-T chunk of K4_BATCH 256² crops through ``make_reenact_fn``
+    at the published widths (seeded generator, A on 8 of 16 rows, DECA),
+    float32: K4's launches and plan misses zeroed before a second chunk and
+    read after it (one call a layer, no plan made anew), and its images
+    against the same latents synthesized with the plain version in K4's
+    place. Returns the launches."""
+    from stylegan_directions_face_reenactment_tpu_torch.geometry import initialize_directions
+    from stylegan_directions_face_reenactment_tpu_torch.models import stylegan3 as sg3
+    from stylegan_directions_face_reenactment_tpu_torch.models.deca import calculate_shapemodel
+    from stylegan_directions_face_reenactment_tpu_torch.ops import filtered_lrelu as k4
+    from stylegan_directions_face_reenactment_tpu_torch.pipeline import (
+        generate_image, make_reenact_fn)
+    from stylegan_directions_face_reenactment_tpu_torch.weights import (
+        init_deca, init_direction_matrix)
+    from stylegan_directions_face_reenactment_tpu_torch.weights.stylegan3 import init_stylegan3
+    g = init_stylegan3(0, device="cuda")
+    a = init_direction_matrix(1, 512, 15, w_plus=True, num_layers=8, device="cuda")
+    deca = init_deca(2, device="cuda")
+    need(g.n_latent == 16 and len(g.layer_names) == 15, "not the published StyleGAN3-T")
+    with torch.inference_mode():
+        trunc = sg3.mean_latent(g, torch.Generator().manual_seed(3), 4096)
+        z = torch.randn(1, 512, generator=torch.Generator().manual_seed(4)).cuda()
+        code = sg3.style_to_wplus(g, [sg3.mapping(g, z)])
+        src = generate_image(g, code, input_is_latent=True)
+        params, angles = calculate_shapemodel(deca, src)
+    crops = torch.rand(K4_BATCH, 256, 256, 3, generator=torch.Generator().manual_seed(5)) * 2 - 1
+    fn = make_reenact_fn(g, a, deca, initialize_directions("ffhq", 15, 6.0), truncation=0.7,
+                         truncation_latent=trunc, num_layers_shift=8)
+    fn(code, params, angles, crops)
+    torch.cuda.synchronize()
+    k4.filtered_lrelu_cuda.launches = k4.filtered_lrelu_cuda.plan_misses = 0
+    t0 = time.perf_counter()
+    img, lat = fn(code, params, angles, crops)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, misses = k4.filtered_lrelu_cuda.launches, k4.filtered_lrelu_cuda.plan_misses
+    need(launches == 15 and misses == 0,
+         f"a StyleGAN3-T chunk launched K4 {launches} times with {misses} plans made; "
+         "expected 15 and 0")
+    need(tuple(img.shape) == (K4_BATCH, 256, 256, 3) and bool(torch.isfinite(img).all()),
+         f"the StyleGAN3-T chunk's images: {tuple(img.shape)}, finite "
+         f"{bool(torch.isfinite(img).all())}")
+    def plain_k4(x, fu, fd, b, up, down, pad, gain, slope, clamp, in_scale=None,
+                 out_scale=None):
+        scales = {k: v for k, v in (("in_scale", in_scale), ("out_scale", out_scale))
+                  if v is not None}
+        return k4_plain_sliced(x, (fu, fd, up, down, pad, gain, slope, clamp), b, scales)
+
+    # the whole chunk at once: StyleGAN3 normalises the styles over the batch
+    with torch.inference_mode(), mock.patch.object(sg3, "filtered_lrelu", plain_k4):
+        want = generate_image(g, lat, input_is_latent=True)
+    err, lim = max_err(img, want), K4_CHUNK_TOL * float(want.abs().max())
+    print(f"[k4] a StyleGAN3-T chunk of {K4_BATCH} crops (make_reenact_fn, float32): K4 "
+          f"launches {launches}, plans made {misses}; {wall * 1e3:.1f} ms; images vs the plain "
+          f"version's synthesis of its latents: max abs err {err:.3g} (limit {lim:.3g})")
+    need(err <= lim, "the StyleGAN3-T chunk's images disagree with the plain version's")
+    del g, a, deca, fn
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_k4(card_name):
+    """21. [k4]: K4 (``sdfr::filtered_lrelu``) against its plain version at
+    every published StyleGAN3-T layer shape at a chunk, in float32 and bf16,
+    and every generic (zero-padded) instantiation; its launches in a chunk
+    of the reenactment path; its times and bound. Returns (worst float32
+    error, timing sums, launches)."""
+    t0 = time.perf_counter()
+    worst = k4_parity()
+    timing = k4_timing(card_name)
+    launches = k4_chunk()
+    print(f"[k4] {time.perf_counter() - t0:.1f} s")
+    return worst, timing, launches
+
+
 def main():
     name, smi = phase_device()
     torch.backends.cudnn.allow_tf32 = False
@@ -4147,7 +4397,10 @@ def main():
     # slice 9, after every earlier phase, so that theirs read as they were recorded
     serve_launches, serve = phase_serve(smi)
     heads_launches = phase_heads(smi)
-    phase_render(smi)      # the renderer, last, for the same reason
+    phase_render(smi)      # the renderer, after them, for the same reason
+    # K4 last, so that every earlier phase reads as it was recorded
+    worst["filtered_lrelu"], k4_timing_sums, k4_launches = phase_k4(name)
+    timing.update(k4_timing_sums)
     for label, res in (("slice 1, resize path", results),
                        ("slice 2, default path, 562x1000 raw frames", results2)):
         for tag, r in res.items():
@@ -4198,6 +4451,7 @@ def main():
                 bwd3[0] + sum(c["K1-bwd"] for c in apps),
                 bwd3[2] + sum(c["K2-bwd"] for c in apps),
                 grad_launches["K3-bwd"] + sum(c["K3-bwd"] for c in apps)]
+    launches.append(k4_launches)
     need(all(n > 0 for n in launches) and bwd3[1] > 0,
          f"a kernel of the main paths never launched: {launches}, K1 down 2 {bwd3[1]}")
 
@@ -4220,7 +4474,10 @@ def main():
              launches[2]),
             ("fused_conv_block_bwd", "cuda", f"{PORT}/ops/fused_conv_block.py",
              "stylegan_directions_face_reenactment_tpu/ops/fused_conv_block.py:187",
-             launches[5])):
+             launches[5]),
+            # the JAX package has no StyleGAN3, so K4 replaces no TPU kernel
+            ("filtered_lrelu", "cuda", f"{PORT}/csrc/filtered_lrelu.cu", None,
+             launches[6])):
         t = timing[(name_k, "float32")]
         kernels.append({
             "name": name_k, "route": route, "source": source, "replaces": replaces,
@@ -4238,11 +4495,11 @@ def main():
 
 def main_only(names):
     """``python3 chip_smoke.py --only ddp [ddp_cards] [mesh] [stats]
-    [report] [serve] [heads] [render]``: those phases alone, after the
+    [report] [serve] [heads] [render] [k4]``: those phases alone, after the
     device, the build and, for slice 8's, the CLI and train inputs (``ddp_cards`` is
     [ddp]'s (a) and (c), the multi-card parts, for a machine with several
     cards). It prints no last line."""
-    _, smi = phase_device()
+    name, smi = phase_device()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     phase_build()
@@ -4251,10 +4508,10 @@ def main_only(names):
               "mesh": lambda: phase_mesh(smi), "stats": lambda: phase_stats(smi),
               "report": lambda: phase_report(smi, os.path.join(CLI_DIR, "targets")),
               "serve": lambda: phase_serve(smi), "heads": lambda: phase_heads(smi),
-              "render": lambda: phase_render(smi)}
+              "render": lambda: phase_render(smi), "k4": lambda: phase_k4(name)}
     need(names and all(n in phases for n in names), f"--only takes phases of {list(phases)}")
     try:
-        if set(names) - {"serve", "heads", "render"}:   # slice 8's read the CLI's files
+        if set(names) - {"serve", "heads", "render", "k4"}:   # slice 8's read the CLI's files
             write_cli_inputs()
             tree = write_train_inputs()
         for n in names:

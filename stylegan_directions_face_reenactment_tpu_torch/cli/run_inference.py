@@ -28,6 +28,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from ..configs.models_config import MODELS
 from ..geometry import initialize_directions
 from ..models.face.cropping import crop_using_landmarks_batch
 from ..native.imgproc import extract_frames, from_gan_range, generate_video
@@ -264,6 +265,12 @@ def main(argv=None):
     fallback; with a video, the seconds its write took after the loop
     (``video_s``)."""
     args = build_parser().parse_args(argv)
+    arch = MODELS.get(args.dataset_type, {}).get("arch", "stylegan2")
+    if arch != "stylegan2":
+        raise SystemExit(f"--dataset_type {args.dataset_type}: the {arch} generator runs on "
+                         "the reenactment path (pipeline/reenactment.py), but e4e inversion "
+                         "and PTI for StyleGAN3 are not in the port yet, so this CLI cannot "
+                         "set up a source for it")
     if args.reuse_landmarks and (args.skip_preprocess or args.deca_alignment == "resize"):
         raise ValueError("--reuse_landmarks needs the detection prep and a bbox-based "
                          "--deca_alignment (fan/fan_frame)")

@@ -1,9 +1,12 @@
 """Generator configurations the port supports and the checkpoint registry:
 the voxceleb and ffhq rows of the reference's model registry
 (``libs/configs/config_models.py``) with the files of its README download
-table. The loaders of ``cli/model_loading.py`` read these files with
-``torch.load``; ``weights/`` makes seeded weights instead
-(``--random_init``).
+table, and ``ffhq_sg3t``, NVlabs' published StyleGAN3-T at FFHQ 1024
+(``models/stylegan3.py``; ``arch`` names the generator kind, StyleGAN2 where
+a row has none). The reenactment path runs it; the CLI does not yet (no
+e4e or PTI for it), and no A is published for it. The loaders of
+``cli/model_loading.py`` read these files with ``torch.load``; ``weights/``
+makes seeded weights instead (``--random_init``).
 
 ``PRETRAINED_ROOT`` is read from ``REENACT_PRETRAINED_ROOT`` when this
 module is first imported.
@@ -26,6 +29,15 @@ MODELS = {
              "generator_path": os.path.join(PRETRAINED_ROOT, "stylegan2-ffhq-config-f.pt"),
              "e4e_path": os.path.join(PRETRAINED_ROOT, "e4e_ffhq_encode.pt"),
              "directions_path": os.path.join(PRETRAINED_ROOT, "A_matrix_ffhq.pt")},
+    "ffhq_sg3t": {"arch": "stylegan3-t", "resolution": 1024, "style_dim": 512,
+                  "mapping_layers": 2, "channel_base": 32768, "channel_max": 512,
+                  "num_layers": 14, "num_critical": 2, "first_cutoff": 2.0,
+                  "first_stopband": 2 ** 2.1, "last_stopband_rel": 2 ** 0.3,
+                  "margin_size": 10, "conv_kernel": 3, "filter_size": 6,
+                  "lrelu_upsampling": 2, "conv_clamp": 256,
+                  # NVlabs' stylegan3-t-ffhq-1024x1024 G_ema as a state dict
+                  "generator_path": os.path.join(PRETRAINED_ROOT,
+                                                 "stylegan3-t-ffhq-1024x1024.pt")},
 }
 
 AUX_MODELS = {

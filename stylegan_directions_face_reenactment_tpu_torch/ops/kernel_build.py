@@ -10,7 +10,8 @@ Nothing is built when this module is imported: the first kernel launch, or
 
 Each kernel is launched by the CUDA implementation of an operator registered
 with ``torch.library`` under :data:`NAMESPACE` (``ops/fused_act.py``,
-``ops/upfirdn2d_kernel.py``, ``ops/fused_conv_block.py``), so that a graph
+``ops/upfirdn2d_kernel.py``, ``ops/fused_conv_block.py``,
+``ops/filtered_lrelu.py``), so that a graph
 exported with ``torch.export`` names it, and fake tensors never reach a
 ``ctypes`` call.
 """
@@ -33,7 +34,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 NAMESPACE = "sdfr"     # the operators' namespace: torch.ops.sdfr.<name>
-SOURCES = ("upfirdn2d.cu", "fused_bias_act.cu", "fused_conv_block.cu")
+SOURCES = ("upfirdn2d.cu", "fused_bias_act.cu", "fused_conv_block.cu", "filtered_lrelu.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -50,6 +51,8 @@ SIGNATURES = {
     "fused_bias_act_bwd_bf16": (_P, _P, _P, _I64, _F, _F, _P),
     "fused_conv_block_f32": (_P,) * 14 + (_I,) * 6 + (_P,),
     "fused_conv_block_bf16": (_P,) * 14 + (_I,) * 6 + (_P,),
+    # (&K4Params, x, bias, in_scale, out_scale, y, stream)
+    "filtered_lrelu_run": (_P, _P, _P, _P, _P, _P, _P),
 }
 
 

@@ -44,14 +44,13 @@ from ..models.face.cropping import landmarks_in_crop
 from ..models.face.fan import FAN, ConvBlock
 from ..models.nn import fold_bn
 from ..models.face.s3fd import S3FD
-from ..models.stylegan2 import Generator
 from ..ops.fused_conv_block import CHANNELS, K3Args, kernel_weight, program_args
 from ..parallel.mesh import Mesh, _to, data_parallel
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.profiling import span
 from .alignment import landmark_align, make_fan_align
 from .preprocess import preprocess_batch_device
-from .synthesis import generate_image
+from .synthesis import AnyGenerator, generate_image
 
 OUTPUTS = ("full", "reenact")
 
@@ -76,7 +75,7 @@ def source_shape(deca: DECA, source_img: torch.Tensor,
                                 align_fn=align_for(fan_params, s3fd_params))
 
 
-def reenact_batch(g: Generator, a: DirectionMatrix, deca: DECA,
+def reenact_batch(g: AnyGenerator, a: DirectionMatrix, deca: DECA,
                   spec: DirectionsSpec, source_code: torch.Tensor,
                   params_source: Dict[str, torch.Tensor],
                   angles_source: torch.Tensor,
@@ -137,7 +136,7 @@ def to_u8(images: torch.Tensor) -> torch.Tensor:
     return torch.floor(torch.clamp((images + 1.0) * 127.5, 0.0, 255.0) + 0.5).to(torch.uint8)
 
 
-def reenact_raw_batch(g: Generator, a: DirectionMatrix, deca: DECA,
+def reenact_raw_batch(g: AnyGenerator, a: DirectionMatrix, deca: DECA,
                       spec: DirectionsSpec, sfd_prep: S3FD, fan_prep: FAN,
                       source_code: torch.Tensor,
                       params_source: Dict[str, torch.Tensor],
@@ -218,7 +217,7 @@ def _over_mesh(body, mesh: Optional[Mesh], nets, n_batch: int):
                          replicated=[m for m in nets if isinstance(m, torch.nn.Module)])
 
 
-def make_fused_reenact_fn(g: Generator, a: DirectionMatrix, deca: DECA,
+def make_fused_reenact_fn(g: AnyGenerator, a: DirectionMatrix, deca: DECA,
                           spec: DirectionsSpec, sfd_prep: S3FD, fan_prep: FAN, *,
                           crop_size: int = 256,
                           truncation: float = 0.7,
@@ -293,7 +292,7 @@ class ReenactProgram(torch.nn.Module):
     is :func:`reenact_batch` with FAN's blocks taken through K3 with those
     constants (``ops/fused_conv_block.py::program_args``) on every device."""
 
-    def __init__(self, g: Generator, a: DirectionMatrix, deca: DECA, spec: DirectionsSpec,
+    def __init__(self, g: AnyGenerator, a: DirectionMatrix, deca: DECA, spec: DirectionsSpec,
                  fan: Optional[FAN], s3fd: Optional[S3FD],
                  truncation_latent: Optional[torch.Tensor], *, truncation: float,
                  num_layers_shift: int, compute_dtype: torch.dtype,
@@ -365,7 +364,7 @@ def flat_weights(weights: Dict[str, object]) -> Dict[str, torch.Tensor]:
     return flat
 
 
-def make_reenact_program(g: Generator, a: DirectionMatrix, deca: DECA,
+def make_reenact_program(g: AnyGenerator, a: DirectionMatrix, deca: DECA,
                          spec: DirectionsSpec, *, truncation: float = 0.7,
                          truncation_latent: Optional[torch.Tensor] = None,
                          num_layers_shift: int = 8,
@@ -411,7 +410,7 @@ def make_reenact_program(g: Generator, a: DirectionMatrix, deca: DECA,
     return fn, own
 
 
-def make_reenact_fn(g: Generator, a: DirectionMatrix, deca: DECA,
+def make_reenact_fn(g: AnyGenerator, a: DirectionMatrix, deca: DECA,
                     spec: DirectionsSpec, *, truncation: float = 0.7,
                     truncation_latent: Optional[torch.Tensor] = None,
                     num_layers_shift: int = 8,

@@ -1,17 +1,31 @@
 """Latent-shift application and image generation (the reference's
-``generic.py::get_shifted_latent_code`` / ``generate_image``)."""
+``generic.py::get_shifted_latent_code`` / ``generate_image``).
+
+Both take either generator kind, StyleGAN2 (``models/stylegan2.py``) or
+StyleGAN3 (``models/stylegan3.py``), through one interface that each kind's
+module defines: ``mapping``, ``mean_latent``, ``synthesis``,
+``style_to_wplus``, ``generator_forward`` and the generator's
+``n_latent``; :func:`generator_functions` picks the module."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
+from ..models import stylegan2, stylegan3
 from ..models.nn import adaptive_avg_pool2d
-from ..models.stylegan2 import Generator, generator_forward, mapping
+
+AnyGenerator = Union[stylegan2.Generator, "stylegan3.Generator"]
 
 
-def get_shifted_latent_code(g: Generator, z: torch.Tensor, shift: torch.Tensor, *,
+def generator_functions(g: AnyGenerator):
+    """The module of ``g``'s kind: ``models.stylegan3`` for a StyleGAN3
+    generator, ``models.stylegan2`` otherwise."""
+    return stylegan3 if isinstance(g, stylegan3.Generator) else stylegan2
+
+
+def get_shifted_latent_code(g: AnyGenerator, z: torch.Tensor, shift: torch.Tensor, *,
                             input_is_latent: bool = False, w_plus: bool = True,
                             num_layers: Optional[int] = None) -> torch.Tensor:
     """Add a direction shift to a latent code.
@@ -22,7 +36,7 @@ def get_shifted_latent_code(g: Generator, z: torch.Tensor, shift: torch.Tensor, 
     """
     n_lat = g.n_latent
     if not input_is_latent:
-        latent = mapping(g, z)[:, None, :].repeat(1, n_lat, 1)
+        latent = generator_functions(g).mapping(g, z)[:, None, :].repeat(1, n_lat, 1)
     else:
         latent = z if z.dim() == 3 else z[:, None, :].repeat(1, n_lat, 1)
     latent = latent.clone()
@@ -34,7 +48,7 @@ def get_shifted_latent_code(g: Generator, z: torch.Tensor, shift: torch.Tensor, 
     return latent
 
 
-def generate_image(g: Generator, latent_code: torch.Tensor, *,
+def generate_image(g: AnyGenerator, latent_code: torch.Tensor, *,
                    truncation: float = 1.0,
                    truncation_latent: Optional[torch.Tensor] = None,
                    w_plus: bool = True, num_layers_shift: int = 8,
@@ -44,6 +58,7 @@ def generate_image(g: Generator, latent_code: torch.Tensor, *,
                    compute_dtype: torch.dtype = torch.float32):
     """Synthesize, optionally shifting the code first (truncation then acts
     on the shifted code); NHWC outputs larger than 256 are pooled to 256."""
+    generator_forward = generator_functions(g).generator_forward
     if shift_code is None:
         img, lat = generator_forward(
             g, [latent_code], truncation=truncation,

@@ -12,9 +12,11 @@ reference has none).
   calls, and under it the stages ``reenact.inputs``,
   ``reenact.preprocess``, ``reenact.deca``, ``reenact.shift``,
   ``reenact.synthesis`` and ``reenact.outputs``; every kernel of a call
-  on one device falls in exactly one of them;
+  on one device falls in exactly one of them. Inside ``reenact.synthesis``
+  a StyleGAN3 generator opens one ``sg3.layer`` a layer
+  (``models/stylegan3.py``: ``index``, ``rate``, ``size``, ``channels``);
 * :func:`counters`: the kernels' counters (launches, K3's argument builds
-  and launch-cache misses) by dotted name;
+  and launch-cache misses, K4's plans made) by dotted name;
 * :class:`StepTimer`: wall-clock step timing with percentile summaries, for
   a training loop's observability without a profiler. On the card each
   step ends with ``torch.cuda.synchronize()``, so that a step's time is its
@@ -56,14 +58,15 @@ def counters() -> Dict[str, int]:
     """Every counter the port's kernels keep, by ``<function>.<counter>``:
     each operator's launches (``fused_conv_block_cuda.launches`` and the
     rest), K3's argument builds (``fused_conv_block.args_built``: a
-    ConvBlock's folds and packed weights made anew) and K3's launch-cache
+    ConvBlock's folds and packed weights made anew), K3's launch-cache
     misses (``fused_conv_block_cuda.cache_misses``: a launch checked and
-    planned anew). They count from the process's start."""
-    from ..ops import fused_act, fused_conv_block, upfirdn2d_kernel
+    planned anew) and K4's (``filtered_lrelu_cuda.plan_misses``: a launch
+    plan made anew). They count from the process's start."""
+    from ..ops import filtered_lrelu, fused_act, fused_conv_block, upfirdn2d_kernel
     fns = (upfirdn2d_kernel.upfirdn2d_cuda, upfirdn2d_kernel.upfirdn2d_bwd_cuda,
            fused_act.fused_bias_act_cuda, fused_act.fused_bias_act_bwd_cuda,
            fused_conv_block.fused_conv_block_cuda, fused_conv_block.fused_conv_block_bwd,
-           fused_conv_block.fused_conv_block)
+           fused_conv_block.fused_conv_block, filtered_lrelu.filtered_lrelu_cuda)
     return {f"{f.__name__}.{k}": v for f in fns for k, v in sorted(vars(f).items())
             if type(v) is int}
 

@@ -89,7 +89,7 @@ STAGES = {"fused": ["reenact.inputs", "reenact.preprocess", "reenact.deca", "ree
 LAUNCH_COUNTERS = ("upfirdn2d_cuda.launches", "upfirdn2d_bwd_cuda.launches",
                    "upfirdn2d_bwd_cuda.down2_launches", "fused_bias_act_cuda.launches",
                    "fused_bias_act_bwd_cuda.launches", "fused_conv_block_cuda.launches",
-                   "fused_conv_block_bwd.launches")
+                   "fused_conv_block_bwd.launches", "filtered_lrelu_cuda.launches")
 
 
 @pytest.fixture(scope="module")
@@ -172,7 +172,8 @@ def test_counters_and_k3_argument_builds(monkeypatch, inference_weights):
     CPU as the gate sends them on the card."""
     keys = profiling.counters()
     assert set(LAUNCH_COUNTERS) | {"fused_conv_block.args_built",
-                                   "fused_conv_block_cuda.cache_misses"} == set(keys)
+                                   "fused_conv_block_cuda.cache_misses",
+                                   "filtered_lrelu_cuda.plan_misses"} == set(keys)
     monkeypatch.setattr(fan_mod, "fused_convblock_enabled",
                         lambda p, x: p.downsample is None and x.shape[1] == k3.CHANNELS)
     with torch.inference_mode(inference_weights):

@@ -1,0 +1,364 @@
+"""The port's StyleGAN3-T (``models/stylegan3.py``) and K4's plain version
+(``ops/filtered_lrelu.py``), on the CPU at small sizes.
+
+The JAX package has no StyleGAN3, so the yardstick here is the benchmark's
+plain reference, written from NVlabs' ``networks_stylegan3.py`` and
+``_filtered_lrelu_ref`` (``port_bench/reference/model/``), and scipy's
+``firwin``. Tolerances, each with its reason:
+
+* the generator against the reference, 2e-5·max|reference|: the port runs
+  the modulated conv by the input/output-scaling identity and K4's plain
+  version polyphase-free but in another order than NVlabs' per-sample
+  grouped convolution and zero-stuffed FIR, through 7 layers of float32;
+* K4's plain version against NVlabs' reference, 1e-5·max(1, max|ref|): the
+  same taps and the same two 1-D passes, summed in another order by the
+  two convolutions;
+* the replay of the kernel's tiles against the plain version, 1e-5·max:
+  float32 sums of at most 24 taps in another order;
+* the filters against scipy, 1e-7: float32 rounding of the same formula.
+"""
+
+import os
+import sys
+
+import numpy as np
+import pytest
+import scipy.signal
+import torch
+
+from stylegan_directions_face_reenactment_tpu_torch.models import stylegan3 as sg3
+from stylegan_directions_face_reenactment_tpu_torch.ops import filtered_lrelu as k4
+from stylegan_directions_face_reenactment_tpu_torch.pipeline import (
+    generate_image, get_shifted_latent_code, make_fused_reenact_fn, make_reenact_fn)
+from stylegan_directions_face_reenactment_tpu_torch.pipeline.synthesis import (
+    generator_functions)
+from stylegan_directions_face_reenactment_tpu_torch.geometry import initialize_directions
+from stylegan_directions_face_reenactment_tpu_torch.weights.stylegan3 import init_stylegan3
+
+from torch_threads import _threads  # noqa: F401
+
+BENCH = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "port_bench")
+if BENCH not in sys.path:
+    sys.path.append(BENCH)
+
+from reference.model.models import stylegan3 as ref_sg3  # noqa: E402
+from reference.model.ops.filtered_lrelu import filtered_lrelu_ref  # noqa: E402
+
+PUBLISHED = ("L0_36_512 L1_36_512 L2_52_512 L3_52_512 L4_84_512 L5_148_512 L6_148_512 "
+             "L7_276_323 L8_276_203 L9_532_128 L10_1044_81 L11_1044_51 L12_1044_32 "
+             "L13_1024_32 L14_1024_3").split()
+SMALL = dict(resolution=64, channel_base=2048, channel_max=64, num_layers=6)
+TINY16 = dict(resolution=32, channel_base=512, channel_max=16, num_layers=14)
+
+
+@pytest.fixture(scope="module")
+def small():
+    """A seeded 64² generator (6 layers, 8 W+ rows), the reference holding
+    the same state dict, and two W+ codes near the mapped ones."""
+    g = init_stylegan3(3, device="cpu", **SMALL)
+    r = ref_sg3.Generator(SMALL["resolution"], 512, 2, **{k: v for k, v in SMALL.items()
+                                                           if k != "resolution"})
+    r.load_state_dict(g.state_dict())
+    gen = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        w = sg3.mapping(g, torch.randn(2, 512, generator=gen))
+        lat = sg3.style_to_wplus(g, [w]) + 0.2 * torch.randn(2, g.n_latent, 512, generator=gen)
+    return g, r, lat
+
+
+def test_published_layer_table():
+    """The schedule at the published 1024-T settings, names included."""
+    g = sg3.Generator()
+    assert g.layer_names == PUBLISHED
+    assert g.n_latent == 16
+    ups = [(m.up, m.down, len(m.up_taps or (1,)), len(m.down_taps or (1,))) for m in g.layers()]
+    assert ups[2] == ups[10] == (4, 2, 24, 12) and ups[1] == ups[13] == (2, 2, 12, 12)
+    assert ups[14] == (1, 1, 1, 1)
+    assert g.layers()[13].padding == (-11, -12, -11, -12)
+    sch = g.schedule
+    assert [s["rate"] for s in sch[:8]] == [16, 16, 32, 32, 64, 128, 128, 256]
+    assert sum(p.numel() for p in g.synthesis.parameters()) == 21787855
+
+
+def test_filters_match_scipy_firwin():
+    g = sg3.Generator()
+    sch = g.schedule
+    for i, m in enumerate(g.layers()[:-1]):
+        prev = max(i - 1, 0)
+        fs = max(sch[prev]["rate"], sch[i]["rate"]) * 2
+        up = scipy.signal.firwin(numtaps=len(m.up_taps), cutoff=sch[prev]["cutoff"],
+                                 width=sch[prev]["half_width"] * 2, fs=fs)
+        down = scipy.signal.firwin(numtaps=len(m.down_taps), cutoff=sch[i]["cutoff"],
+                                   width=sch[i]["half_width"] * 2, fs=fs)
+        assert np.abs(np.array(m.up_taps) - up).max() < 1e-7
+        assert np.abs(np.array(m.down_taps) - down).max() < 1e-7
+
+
+def test_state_dict_layout_is_nvlabs():
+    """NVlabs' G_ema names: the mapping's fc layers and w_avg, the Fourier
+    input's buffers, each layer's parameters, magnitude_ema and filters
+    (none on ToRGB); the reference has the same keys and shapes."""
+    g = sg3.Generator(**SMALL)
+    sd = g.state_dict()
+    assert {"mapping.fc0.weight", "mapping.fc1.bias", "mapping.w_avg",
+            "synthesis.input.weight", "synthesis.input.affine.weight",
+            "synthesis.input.transform", "synthesis.input.freqs",
+            "synthesis.input.phases"} <= set(sd)
+    for name in g.layer_names:
+        keys = {k.split(".", 2)[2] for k in sd if k.startswith(f"synthesis.{name}.")}
+        want = {"weight", "bias", "magnitude_ema", "affine.weight", "affine.bias"}
+        if name != g.layer_names[-1]:
+            want |= {"up_filter", "down_filter"}
+        assert keys == want, name
+    r = ref_sg3.Generator(SMALL["resolution"], 512, 2, **{k: v for k, v in SMALL.items()
+                                                           if k != "resolution"})
+    assert {k: tuple(v.shape) for k, v in r.state_dict().items()} == \
+        {k: tuple(v.shape) for k, v in sd.items()}
+
+
+def test_generator_matches_reference(small):
+    g, r, lat = small
+    with torch.no_grad():
+        assert torch.equal(sg3.mapping(g, lat[:, 0]), r.mapping(lat[:, 0]))
+        got = sg3.synthesis(g, lat)
+        want = ref_sg3.synthesis(r, lat)
+    assert got.shape == want.shape == (2, 64, 64, 3)
+    err = (got - want).abs().max().item()
+    assert err <= 2e-5 * want.abs().max().item(), err
+
+
+def test_bf16_synthesis_stays_near_float32(small):
+    """The control's precision runs: bf16 convolutions and K4 planes."""
+    g, _, lat = small
+    with torch.no_grad():
+        f32 = sg3.synthesis(g, lat)
+        bf16 = sg3.synthesis(g, lat, compute_dtype=torch.bfloat16)
+    assert bf16.dtype == torch.float32
+    err = (bf16 - f32).abs().max().item()
+    assert 0 < err < 0.1 * f32.abs().max().item(), err
+
+
+@pytest.mark.parametrize("clamp", [None, 0.5], ids=["no_clamp", "clamp"])
+@pytest.mark.parametrize("up,down", [(1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2)])
+def test_k4_plain_matches_nvlabs_reference(up, down, clamp):
+    gen = torch.Generator().manual_seed(10 * up + down)
+    ku, kd = 6 * up if up > 1 else 1, 6 * down if down > 1 else 1
+    fu = sg3.design_lowpass_filter(ku, 3.0, 2.0, 8.0 * up)
+    fd = sg3.design_lowpass_filter(kd, 3.0, 2.0, 8.0 * up)
+    x = torch.randn(2, 3, 19, 23, generator=gen)
+    b = torch.randn(3, generator=gen)
+    pad = (3, -2, 5, 1)
+    got = k4.filtered_lrelu_plain(x, fu, fd, b, up, down, pad, 1.5, 0.2, clamp)
+    want = filtered_lrelu_ref(x, None if fu is None else torch.tensor(fu),
+                              None if fd is None else torch.tensor(fd), b, up, down, pad, 1.5,
+                              0.2, clamp)
+    assert got.shape == want.shape
+    assert got.shape[2:] == k4.output_shape(19, 23, ku, kd, up, down, pad)
+    assert (got - want).abs().max().item() <= 1e-5 * max(1.0, want.abs().max().item())
+    if clamp is not None:
+        assert want.abs().max().item() <= clamp * 1.0001 or down > 1
+
+
+def test_k4_plain_scales_each_plane_on_the_way_in_and_out():
+    gen = torch.Generator().manual_seed(12)
+    m = sg3.Generator(**SMALL).layers()[1]
+    x = torch.randn(2, 3, 30, 30, generator=gen)
+    b, s_in, s_out = (torch.randn(3, generator=gen), torch.rand(2, 3, generator=gen) + 0.5,
+                      torch.rand(2, 3, generator=gen) + 0.5)
+    args = (m.up_taps, m.down_taps, b, m.up, m.down, m.padding, 2 ** 0.5, 0.2, 4.0)
+    got = k4.filtered_lrelu(x, *args, in_scale=s_in, out_scale=s_out)
+    want = k4.filtered_lrelu_plain(x * s_in[:, :, None, None], *args) * s_out[:, :, None, None]
+    assert (got - want).abs().max().item() <= 1e-6 * want.abs().max().item()
+
+
+def _replay(x, b, fu, fd, up, down, pad, gain, slope, clamp):
+    """K4's tiles and index arithmetic (``csrc/filtered_lrelu.cu``) replayed
+    pass by pass in numpy, as the launch plan lays them out."""
+    n, c, h, w = x.shape
+    fu, fd = k4._taps(fu), k4._taps(fd)
+    nq, kd = k4.instantiated_taps(up, down, len(fu), len(fd))
+    px0, _, py0, _ = pad
+    oh, ow = k4.output_shape(h, w, len(fu), len(fd), up, down, pad)
+    lay = k4.choose_tile(oh, ow, up, down, nq, kd, pad)
+    th, tw, run, drun = lay["th"], lay["tw"], k4.RUN, k4.DOWN_RUN
+    stride = k4.MAX_TAPS // up
+    fph = k4.phase_taps(fu, up).ravel()
+    fdf = np.zeros(k4.MAX_TAPS, np.float32)
+    fdf[:len(fd)] = np.asarray(fd, np.float32)[::-1]
+    wu, wd = (run - 1 + up - 1) // up + nq, (drun - 1) * down + kd
+    phases = [((up - u % up) % up, (u + up - 1) // up) for u in range(run)]
+    xs, out = x.reshape(n * c, h, w).numpy(), np.zeros((n * c, oh, ow), np.float32)
+
+    def up_run(win):
+        return np.stack([sum(fph[ph * stride + q] * win[st + q] for q in range(nq))
+                         for ph, st in phases])
+
+    def down_run(win):
+        return np.stack([sum(fdf[k] * win[u * down + k] for k in range(kd))
+                         for u in range(drun)])
+
+    for pl in range(n * c):
+        for oy0 in range(0, oh, th):
+            for ox0 in range(0, ow, tw):
+                assert (oy0 * down - lay["dy"] - py0) % up == 0
+                iy0 = (oy0 * down - lay["dy"] - py0) // up
+                ix0 = (ox0 * down - lay["dx"] - px0) // up
+                s_in = np.zeros((lay["ih"], lay["iw"]), np.float32)
+                ys, xs_ = np.arange(lay["ih"]) + iy0, np.arange(lay["iw"]) + ix0
+                ok = (ys[:, None] >= 0) & (ys[:, None] < h) & (xs_[None] >= 0) & (xs_[None] < w)
+                s_in[ok] = (xs[pl][np.clip(ys, 0, h - 1)][:, np.clip(xs_, 0, w - 1)]
+                            + b[pl % c].item())[ok]
+                s_hu = np.zeros((lay["ih"], lay["mw"]), np.float32)
+                for c0 in range(0, lay["mw"], run):
+                    win = s_in[:, c0 // up: c0 // up + wu].T
+                    assert win.shape[0] == wu
+                    s_hu[:, c0:c0 + run] = up_run(win).T
+                s_mid = np.zeros((lay["mh"], lay["mw"]), np.float32)
+                for r0 in range(0, lay["mh"], run):
+                    win = s_hu[r0 // up: r0 // up + wu]
+                    assert win.shape[0] == wu
+                    v = up_run(win)
+                    v = np.where(v < 0, v * slope, v) * gain
+                    s_mid[r0:r0 + run] = v if clamp is None else np.clip(v, -clamp, clamp)
+                s_hd = np.zeros((lay["mh_used"], tw), np.float32)
+                for t0 in range(0, tw, drun):
+                    s0 = lay["dx"] + t0 * down
+                    win = s_mid[:lay["mh_used"], s0:s0 + wd].T
+                    assert win.shape[0] == wd
+                    s_hd[:, t0:t0 + drun] = down_run(win).T
+                for t0 in range(0, th, drun):
+                    s0 = lay["dy"] + t0 * down
+                    win = s_hd[s0:s0 + wd]
+                    assert win.shape[0] == wd
+                    v = down_run(win)
+                    rows, cols = min(drun, oh - oy0 - t0), min(tw, ow - ox0)
+                    if rows > 0 and cols > 0:
+                        out[pl, oy0 + t0:oy0 + t0 + rows, ox0:ox0 + cols] = v[:rows, :cols]
+    return torch.from_numpy(out.reshape(n, c, oh, ow))
+
+
+@pytest.mark.parametrize("up,down,ku,kd,pad,size", [
+    (2, 2, 12, 12, (9, 8, 9, 8), 46),            # L1, L3, ... : two tiles a side
+    (4, 2, 24, 12, (-6, -9, -6, -9), 18),         # L2, L4, ... L10
+    (2, 2, 12, 12, (-11, -12, -11, -12), 40),     # L13, the crop to 1024
+    (1, 1, 1, 1, (0, 0, 0, 0), 9),                # L14, ToRGB
+    (2, 1, 5, 3, (1, 2, 3, 0), 7),                # any other count: zero-padded to 24
+    (1, 2, 4, 7, (2, 2, 1, 3), 40),
+    (1, 1, 5, 7, (3, 2, 3, 2), 17),
+    (2, 2, 8, 24, (12, 11, 12, 11), 21),
+    (4, 1, 24, 3, (13, 12, 13, 12), 11),
+    (4, 2, 16, 10, (14, 11, -3, 9), 17),
+], ids=["up2", "up4", "crop", "torgb", "generic_up", "generic_down", "generic_11",
+        "generic_22", "generic_41", "generic_42"])
+def test_kernel_tiles_replay_the_plain_version(up, down, ku, kd, pad, size):
+    gen = torch.Generator().manual_seed(size)
+    fu = sg3.design_lowpass_filter(ku, 3.0, 2.0, 8.0 * up)
+    fd = sg3.design_lowpass_filter(kd, 3.0, 2.0, 8.0 * up)
+    x = torch.randn(1, 2, size, size + 3, generator=gen)
+    b = torch.randn(2, generator=gen)
+    want = k4.filtered_lrelu_plain(x, fu, fd, b, up, down, pad, 1.41, 0.2, 1.0)
+    got = _replay(x, b, fu, fd, up, down, pad, 1.41, 0.2, 1.0)
+    assert got.shape == want.shape
+    assert (got - want).abs().max().item() <= 1e-5 * max(1.0, want.abs().max().item())
+
+
+def test_launch_plans_fit_the_card():
+    """Every published layer's plan: a specialised instantiation, tiles
+    within the shared memory the kernel asks for, whole runs."""
+    g = sg3.Generator()
+    for m in g.layers():
+        ku, kd = len(m.up_taps or (1.0,)), len(m.down_taps or (1.0,))
+        nq, kd_t = k4.instantiated_taps(m.up, m.down, ku, kd)
+        assert (m.up, m.down, nq, kd_t) in k4.SPECIALIZED
+        lay = k4.choose_tile(m.out_size, m.out_size, m.up, m.down, nq, kd_t, m.padding)
+        assert lay["smem_bytes"] <= k4.MAX_SMEM
+        assert lay["mh"] % k4.RUN == 0 and lay["th"] % k4.DOWN_RUN == 0
+    with pytest.raises(ValueError, match="CUDA"):
+        k4.make_plan((1, 1, 8, 8), torch.float32, torch.device("cpu"), None, None, 1, 1,
+                     (0, 0, 0, 0), 1.0, 1.0, None)
+
+
+def test_generate_image_shifts_8_of_16_rows():
+    """16 W+ rows, a shift on the first 8 (the input and L0-L6): the shifted
+    code, and the image of it through the generator's own functions."""
+    g = init_stylegan3(6, device="cpu", **TINY16)
+    assert g.n_latent == 16 and generator_functions(g) is sg3
+    gen = torch.Generator().manual_seed(7)
+    with torch.no_grad():
+        code = sg3.style_to_wplus(g, [sg3.mapping(g, torch.randn(2, 512, generator=gen))])
+        shift = torch.randn(2, 8, 512, generator=gen)
+        shifted = get_shifted_latent_code(g, code, shift, input_is_latent=True)
+        assert torch.equal(shifted[:, :8], code[:, :8] + shift)
+        assert torch.equal(shifted[:, 8:], code[:, 8:])
+        img, lat = generate_image(g, code, shift_code=shift, input_is_latent=True,
+                                  return_latents=True)
+        assert torch.equal(lat, shifted)
+        assert torch.equal(img, sg3.synthesis(g, shifted))
+
+
+@pytest.fixture(scope="module")
+def reenact_world():
+    from torch_reenact_world import build_world
+    world = build_world()
+    _, a, deca, pf, ps = world["port"]
+    g = init_stylegan3(8, device="cpu", resolution=64, channel_base=1024, channel_max=32,
+                       num_layers=14)
+    with torch.no_grad():
+        z = torch.randn(64, 512, generator=torch.Generator().manual_seed(9))
+        trunc = sg3.mapping(g, z).mean(dim=0, keepdim=True)
+        code = sg3.style_to_wplus(g, [sg3.mapping(g, z[:1])])
+    spec = initialize_directions("ffhq", 15, 6.0)
+    return dict(g=g, a=a, deca=deca, pf=pf, ps=ps, trunc=trunc, code=code, spec=spec,
+                src=(code, world["ps"], world["ang"]), frames=world["frames"])
+
+
+def _check_latents_and_images(w, reenacted, latents):
+    """The latents: the truncated code with the shift on the first 8 rows;
+    the images: the generator's synthesis of those latents."""
+    trunc, code = w["trunc"], w["code"]
+    want_rest = (trunc + 0.7 * (code - trunc))[:, 8:].expand(latents.shape[0], -1, -1)
+    assert latents.shape == (reenacted.shape[0], 16, 512)
+    torch.testing.assert_close(latents[:, 8:], want_rest, rtol=0, atol=1e-6)
+    assert (latents[:, :8] - (trunc + 0.7 * (code - trunc))[:, :8]).abs().max() > 1e-4
+    with torch.no_grad():
+        torch.testing.assert_close(reenacted, sg3.synthesis(w["g"], latents), rtol=0,
+                                   atol=1e-6)
+
+
+def test_make_reenact_fn_runs_stylegan3(reenact_world):
+    w = reenact_world
+    fn = make_reenact_fn(w["g"], w["a"], w["deca"], w["spec"], truncation_latent=w["trunc"],
+                         fan_params=w["pf"], s3fd_params=w["ps"], device="cpu")
+    crops = torch.from_numpy(w["frames"]).float() / 127.5 - 1.0
+    reenacted, latents = fn(*w["src"], crops)
+    assert reenacted.shape == (2, 64, 64, 3)
+    _check_latents_and_images(w, reenacted, latents)
+
+
+def test_make_fused_reenact_fn_runs_stylegan3(reenact_world):
+    w = reenact_world
+    fn = make_fused_reenact_fn(w["g"], w["a"], w["deca"], w["spec"], w["ps"], w["pf"],
+                               truncation_latent=w["trunc"], fan_params=w["pf"],
+                               s3fd_params=w["ps"], device="cpu")
+    reenacted, latents, crops, ok, _, _ = fn(*w["src"], w["frames"])
+    assert reenacted.shape == (2, 64, 64, 3) and bool(ok.all())
+    _check_latents_and_images(w, reenacted, latents)
+    # the same crops through the unfused entry give the same answers
+    unfused = make_reenact_fn(w["g"], w["a"], w["deca"], w["spec"],
+                              truncation_latent=w["trunc"], fan_params=w["pf"],
+                              s3fd_params=w["ps"], device="cpu")
+    r2, l2 = unfused(*w["src"], crops.float() / 127.5 - 1.0)
+    torch.testing.assert_close(l2, latents, rtol=0, atol=1e-5)
+
+
+def test_cli_stops_plainly_on_stylegan3(tmp_path):
+    from stylegan_directions_face_reenactment_tpu_torch.cli import run_inference
+    from stylegan_directions_face_reenactment_tpu_torch.configs.models_config import MODELS
+    row = MODELS["ffhq_sg3t"]
+    assert row["arch"] == "stylegan3-t" and row["resolution"] == 1024
+    with pytest.raises(SystemExit, match="e4e inversion and PTI for StyleGAN3"):
+        run_inference.main(["--dataset_type", "ffhq_sg3t", "--device", "cpu",
+                            "--source_path", str(tmp_path / "source.png"),
+                            "--target_path", str(tmp_path / "target.png"),
+                            "--output_path", str(tmp_path / "out"), "--random_init"])
+    assert not (tmp_path / "out").exists()

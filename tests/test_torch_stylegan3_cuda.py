@@ -1,0 +1,124 @@
+"""K4 (``csrc/filtered_lrelu.cu``) against its plain version on the card,
+at every layer shape of the published StyleGAN3-T at 1024² (the layer
+table of ``models/stylegan3.py``, a batch of 2; per-plane input and output
+scales on every other layer), in float32 and bf16; each instantiation
+zero-padded to 24 taps (every (up, down) pair) at a small shape; and
+the StyleGAN3 synthesis with K4 against the same synthesis through the
+plain version. ``chip_smoke.py`` [k4] holds the published shapes at the
+chunk of 16 the reenactment path runs.
+
+These need a CUDA card and nvcc; they are marked ``cuda`` and skip
+elsewhere (the fixture decides). Run them on the card with:
+
+    python -m pytest tests/test_torch_stylegan3_cuda.py -m cuda -q --noconftest
+
+Tolerances: float32 2e-5·max(1, max|plain|): the kernel sums each 1-D pass
+in the plain version's tap order but the plain version's depthwise
+convolutions (cuDNN) may not, through two chained FIRs of up to 24 taps;
+bf16 1e-2·max(1, max|plain|): both sum in float32 from the same bf16 input
+and round once, so one bf16 rounding (2^-8) on either side. The synthesis,
+2e-4·max|plain| in float32: the layers' differences pass through 14 more
+layers and their demodulation.
+"""
+
+import pytest
+import torch
+
+from stylegan_directions_face_reenactment_tpu_torch.models import stylegan3 as sg3
+from stylegan_directions_face_reenactment_tpu_torch.ops import filtered_lrelu as k4
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (and nvcc to build the kernels)")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _layers():
+    """(name, layer) of the published generator, built on the CPU once."""
+    g = sg3.Generator()
+    return list(zip(g.layer_names, g.layers()))
+
+
+LAYERS = _layers()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("idx", range(len(LAYERS)), ids=[n for n, _ in LAYERS])
+def test_k4_matches_plain_at_published_layer(card, idx, dtype):
+    name, m = LAYERS[idx]
+    gen = torch.Generator(device=card).manual_seed(idx)
+    conv_hw = m.in_size + m.conv_kernel - 1
+    x = (torch.randn(2, m.out_channels, conv_hw, conv_hw, generator=gen, device=card) * 3
+         ).to(dtype)
+    b = torch.randn(m.out_channels, generator=gen, device=card)
+    gain, slope = (0.25, 1.0) if m.is_torgb else (2 ** 0.5, 0.2)
+    clamp = 64.0 if m.is_torgb else 256.0 if idx % 2 else 1.0
+    # the demodulation and the next layer's styles on every other layer
+    scales = {} if idx % 2 else dict(
+        in_scale=torch.rand(2, m.out_channels, generator=gen, device=card) + 0.5,
+        out_scale=torch.rand(2, m.out_channels, generator=gen, device=card) + 0.5)
+    before = k4.filtered_lrelu_cuda.launches
+    got = k4.filtered_lrelu(x, m.up_taps, m.down_taps, b, m.up, m.down, m.padding, gain,
+                            slope, clamp, **scales)
+    torch.cuda.synchronize()
+    assert k4.filtered_lrelu_cuda.launches == before + 1
+    want = k4.filtered_lrelu_plain(x, m.up_taps, m.down_taps, b, m.up, m.down, m.padding,
+                                   gain, slope, clamp, **scales)
+    assert got.shape == (2, m.out_channels, m.out_size, m.out_size) == want.shape
+    assert got.dtype == dtype
+    scale = max(1.0, want.float().abs().max().item())
+    tol = 2e-5 if dtype == torch.float32 else 1e-2
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * scale, (name, err, scale)
+
+
+# (up, down, taps of fu, taps of fd), planes, input size, pad: every (up,
+# down) pair at tap counts no published layer has, so each runs the
+# kernel's instantiation zero-padded to 24 taps
+GENERIC = (((1, 1, 5, 7), 5, 37, (3, 2, 3, 2)), ((1, 2, 3, 12), 6, 45, (5, 6, 5, 6)),
+           ((2, 1, 12, 5), 7, 29, (7, 6, 7, 6)), ((2, 2, 8, 24), 5, 41, (12, 11, 12, 11)),
+           ((4, 1, 24, 3), 6, 23, (13, 12, 13, 12)), ((4, 2, 16, 10), 7, 33, (14, 11, -3, 9)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", GENERIC, ids=[f"up{c[0][0]}_down{c[0][1]}" for c in GENERIC])
+def test_k4_generic_instantiation_matches_plain(card, case, dtype):
+    (up, down, ku, kd), planes, hw, pad = case
+    assert k4.instantiated_taps(up, down, ku, kd) == (24 // up, 24)
+    gen = torch.Generator(device=card).manual_seed(hw)
+    x = (torch.randn(2, planes, hw, hw + 3, generator=gen, device=card) * 3).to(dtype)
+    fu = torch.rand(ku, generator=gen, device=card).cpu() + 0.1
+    fd = torch.rand(kd, generator=gen, device=card).cpu() + 0.1
+    b = torch.randn(planes, generator=gen, device=card)
+    scales = dict(in_scale=torch.rand(2, planes, generator=gen, device=card) + 0.5,
+                  out_scale=torch.rand(2, planes, generator=gen, device=card) + 0.5)
+    args = (fu / fu.sum(), fd / fd.sum(), b, up, down, pad, 2 ** 0.5, 0.2, 4.0)
+    before = k4.filtered_lrelu_cuda.launches
+    got = k4.filtered_lrelu(x, *args, **scales)
+    torch.cuda.synchronize()
+    assert k4.filtered_lrelu_cuda.launches == before + 1
+    want = k4.filtered_lrelu_plain(x, *args, **scales)
+    assert got.shape == want.shape and got.dtype == dtype
+    scale = max(1.0, want.float().abs().max().item())
+    tol = 2e-5 if dtype == torch.float32 else 1e-2
+    assert (got.float() - want.float()).abs().max().item() <= tol * scale
+
+
+def test_k4_synthesis_matches_plain_synthesis(card, monkeypatch):
+    from stylegan_directions_face_reenactment_tpu_torch.weights.stylegan3 import init_stylegan3
+    g = init_stylegan3(5, device=card, resolution=256, channel_base=8192, channel_max=256)
+    z = torch.randn(2, 512, generator=torch.Generator(device=card).manual_seed(1), device=card)
+    with torch.no_grad():
+        lat = sg3.style_to_wplus(g, [sg3.mapping(g, z)])
+        got = sg3.synthesis(g, lat)
+        monkeypatch.setattr(sg3, "filtered_lrelu", lambda x, *a, **k: k4.filtered_lrelu_plain(
+            x, *a, **k))
+        want = sg3.synthesis(g, lat)
+    err = (got - want).abs().max().item()
+    assert err <= 2e-4 * want.abs().max().item(), err
