@@ -139,9 +139,10 @@ non-zero without printing the last line:
     StyleGAN3-T at a chunk of 16, float32 and bf16 (per-plane scales on
     every other layer), and each instantiation zero-padded to 24 taps at a
     small shape; its device ms, host µs, call ms, plain ms and bound over a
-    chunk's 15 calls; its launches (15) and plans made (0) in a second
-    StyleGAN3-T chunk through ``make_reenact_fn``, whose images are held
-    against the plain version's synthesis of the same latents.
+    chunk's 15 calls, with each plan's tile and plane walk; its launches
+    (15), plans made (0) and planes prefetched (the sum its plans give) in a
+    second StyleGAN3-T chunk through ``make_reenact_fn``, whose images are
+    held against the plain version's synthesis of the same latents.
 
 Phases 10-21 run last, so that the readings of 1-8 keep the conditions
 they were first recorded in.
@@ -4253,7 +4254,7 @@ def k4_timing(card_name):
     version's ms (one pass over the chunk, K4_PLAIN_SLICE frames a call,
     after warm-ups), the bound."""
     from stylegan_directions_face_reenactment_tpu_torch.ops.filtered_lrelu import (
-        filtered_lrelu_cuda)
+        _taps, filtered_lrelu_cuda, normalize_pad, plan_for)
     bw, flops, _ = card_rates(card_name)
     gen = torch.Generator(device="cuda").manual_seed(6)
     out = {}
@@ -4275,7 +4276,11 @@ def k4_timing(card_name):
             plain = time_ms(lambda: k4_plain_sliced(x, (fu, fd, up, down, pad, gain, slope,
                                                         clamp), b, scales), reps=1)
             torch.cuda.empty_cache()
-            print(f"[k4] timing {name} {tuple(x.shape)} {tag}: kernel device {ms:.4f} ms, "
+            p = plan_for(x, _taps(fu), _taps(fd), up, down, normalize_pad(pad), gain, slope,
+                         clamp).params
+            print(f"[k4] timing {name} {tuple(x.shape)} {tag} (tile {p.th}, {p.gx * p.gy} "
+                  f"tiles, {p.pz} planes a block, {p.gz} blocks a tile, {p.smem_bytes} B "
+                  f"shared): kernel device {ms:.4f} ms, "
                   f"host {host:.2f} us, call {call_ms:.4f} ms; plain {plain:.3f} ms; bound "
                   f"{bound:.4f} ms ({ops / 1e12:.4f} TFLOP, {nbytes / 1e9:.3f} GB); "
                   f"kernel/bound {ms / bound:.2f}")
@@ -4319,14 +4324,27 @@ def k4_chunk():
     fn(code, params, angles, crops)
     torch.cuda.synchronize()
     k4.filtered_lrelu_cuda.launches = k4.filtered_lrelu_cuda.plan_misses = 0
+    k4.filtered_lrelu_cuda.prefetched_planes = 0
+    plans, plan_for = [], k4.plan_for
+
+    def recorded(*args):
+        plans.append(plan_for(*args))
+        return plans[-1]
+
     t0 = time.perf_counter()
-    img, lat = fn(code, params, angles, crops)
-    torch.cuda.synchronize()
+    with mock.patch.object(k4, "plan_for", recorded):
+        img, lat = fn(code, params, angles, crops)
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, misses = k4.filtered_lrelu_cuda.launches, k4.filtered_lrelu_cuda.plan_misses
+    prefetched = k4.filtered_lrelu_cuda.prefetched_planes
     need(launches == 15 and misses == 0,
          f"a StyleGAN3-T chunk launched K4 {launches} times with {misses} plans made; "
          "expected 15 and 0")
+    # blocks × (planes walked − 1), from each launch's plan
+    want = sum(q.params.gx * q.params.gy * (q.params.planes - q.params.gz) for q in plans)
+    need(prefetched == want > 0,
+         f"K4 counted {prefetched} prefetched planes in the chunk; its plans give {want}")
     need(tuple(img.shape) == (K4_BATCH, 256, 256, 3) and bool(torch.isfinite(img).all()),
          f"the StyleGAN3-T chunk's images: {tuple(img.shape)}, finite "
          f"{bool(torch.isfinite(img).all())}")
@@ -4341,7 +4359,8 @@ def k4_chunk():
         want = generate_image(g, lat, input_is_latent=True)
     err, lim = max_err(img, want), K4_CHUNK_TOL * float(want.abs().max())
     print(f"[k4] a StyleGAN3-T chunk of {K4_BATCH} crops (make_reenact_fn, float32): K4 "
-          f"launches {launches}, plans made {misses}; {wall * 1e3:.1f} ms; images vs the plain "
+          f"launches {launches}, plans made {misses}, planes prefetched {prefetched}; "
+          f"{wall * 1e3:.1f} ms; images vs the plain "
           f"version's synthesis of its latents: max abs err {err:.3g} (limit {lim:.3g})")
     need(err <= lim, "the StyleGAN3-T chunk's images disagree with the plain version's")
     del g, a, deca, fn

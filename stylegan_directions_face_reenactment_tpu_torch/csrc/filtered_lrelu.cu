@@ -12,24 +12,44 @@
 // out (the next layer's styles), so that neither is a pass of its own over
 // device memory. ops/filtered_lrelu.py holds the plain version and the plan.
 //
-// What bounds it on an H100: at the published 1024^2 layers the FIR FMAs on
-// the CUDA cores (about 72 an output, polyphase) and the bytes (one read of
-// the input, one write of the output) about equally. Composed in device
-// memory, the upsampled plane (four times the output) would be written and
-// read several times over: ten times the bytes.
+// What bounds it on an H100: by its bytes (one read of the input, one write
+// of the output) and its FIR FMAs on the CUDA cores (about 72 an output,
+// polyphase) it could run in 11.3 ms a StyleGAN3-T chunk; composed in
+// device memory, the upsampled plane (four times the output) would be
+// written and read several times over, ten times the bytes. What holds it
+// back now is not the latency of its loads (hidden below) but the passes'
+// own issue slots and shared-memory traffic: an output of an up-2 layer
+// takes about 29 32-bit shared accesses for its 72 FMAs, and about as many
+// other instructions again (the activation, addresses, the walk), where an
+// SM serves 32 shared floats a clock and 128 FMAs. Taking one pass out of a
+// build saves about its share of those (PERF.md, section 6).
 //
 // What the design does about that:
-// * One block makes one output tile (16 to 40 a side, chosen by the plan to
-//   waste least at the plane's size) of one plane in one pass through
-//   shared memory: the input tile with its halo (bias added, zeros outside
-//   the plane), then the x-upsampled tile, the upsampled tile with the
-//   activation applied, the x-downsampled tile, and the output. Nothing but
-//   the input and the output touches device memory.
+// * A block owns one output tile (16 to 40 a side, chosen by the plan) and
+//   walks a run of planes of it (the plan's pz, from the shape: as many as
+//   keep enough waves of blocks on the card); its geometry, window offsets
+//   and edge masks are worked out once. Each plane goes through shared
+//   memory in one pass: the input tile with its halo, the x-upsampled tile,
+//   the upsampled tile with the activation applied, the x-downsampled tile,
+//   and the output. Nothing but the input and the output touches device
+//   memory.
+// * The input tile has two slots. While plane k is filtered, plane k + 1's
+//   input is on its way into the other slot by cp.async (4 bytes a copy,
+//   zero-filled outside the plane), with its bias and scales in registers;
+//   it is waited for only when plane k + 1 starts. The threads walk the
+//   tile's words without a division or a 64-bit product a word, so that
+//   issuing the copies costs few slots. The raw input lands as
+//   it is (f32 or bf16); the x-up pass scales it, adds the bias and, on a
+//   tile that crosses the plane's edge, zeroes what lies outside. The
+//   x-downsampled tile reuses the x-upsampled tile's region, which neither
+//   slot overlaps.
+// * Not TMA: a tensor map needs a row pitch that is a multiple of 16
+//   bytes, and no input width of the published layers but ToRGB's (38 ...
+//   1046 columns) is one, in f32 (8 mod 16 bytes) or in bf16.
 // * Polyphase: an upsampled sample takes only the taps of its phase, so no
 //   zero-stuffed sample is stored or multiplied. The tile starts on phase 0
 //   (the plan shifts it by (dy, dx)), so every phase, tap and window offset is
-//   a compile-time constant. The input tile is loaded a warp a row, eight
-//   loads in flight a thread; a pass steps through its items without an
+//   a compile-time constant; a pass steps through its items without an
 //   integer division per item.
 // * Each thread makes a run of 8 upsampled (4 downsampled) samples along the
 //   filter's axis from a window held in registers: 48 FMAs for 10 shared
@@ -52,7 +72,6 @@ constexpr int kRun = 8;       // upsampled samples a thread makes in a pass
 constexpr int kDownRun = 4;   // downsampled samples a thread makes in a pass
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kLoads = 8;     // loads of the input tile in flight a thread
 
 // The launch plan's arguments; ops/filtered_lrelu.py::_K4Params mirrors it.
 struct K4Params {
@@ -66,9 +85,11 @@ struct K4Params {
   int dy, dx;                // the upsampled tile's offset onto phase 0
   int mh, mw, mh_used;       // the upsampled tile (whole runs); rows read downstream
   int ih, iw;                // the input tile
-  int p_in, p_hu, p_mid, p_hd;  // row pitches (floats)
-  int off_hu, off_mid;       // float offsets of regions B and C
-  int gx, gy;                // grid: tiles along x, along y (planes on z)
+  int p_in, p_hu, p_mid, p_hd;  // row pitches (4-byte words; p_in of a slot)
+  int slot;                  // words of an input slot (slot 1 starts there)
+  int off_hu, off_mid;       // word offsets of regions B and C
+  int gx, gy, gz;            // grid: tiles along x, along y, runs of planes
+  int pz;                    // planes a block walks (its last block: the rest)
   int smem_bytes;
   float gain, slope, clamp;  // clamp < 0: none
   float fu[kMaxTaps];        // flipped, times up, phase-major: fu[ph * (24 / up) + q]
@@ -86,7 +107,8 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 }
 
 // The items of a pass, w = tid, tid + kThreads, ..., as (fast, slow) =
-// (w % n, w / n), stepped without a division per item.
+// (w % n, w / n), stepped without a division per item. A block makes each
+// pass's walk once and starts every plane's pass from a copy of it.
 struct Walk {
   int fast, slow, step_fast, step_slow, n;
   __device__ __forceinline__ Walk(int tid, int n_)
@@ -140,127 +162,215 @@ __device__ __forceinline__ void down_run(const float (&win)[(kDownRun - 1) * DOW
   }
 }
 
+// 4 bytes from global to shared memory, in flight until cp_async_wait();
+// zeros where !fetch (nothing is read then).
+__device__ __forceinline__ void cp_async4(float* dst, const uint32_t* src, bool fetch) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(fetch ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// A tile's input rows in device memory as cp.async copies them: 4-byte
+// words. Element e of the input (counted from a 4-byte boundary, so a bf16
+// tensor may start at e = 1) lies in word e / kPer at place e % kPer; each
+// row of the tile starts at its own place, which a bf16 plane of odd width
+// changes from row to row.
+template <typename T>
+struct TileRows {
+  static constexpr int kPer = 4 / sizeof(T);   // elements a word
+  const uint32_t* w0;  // the word that holds the tile's (row 0, column 0) in this plane
+  int s0;              // that element's place in it
+  // e0: the element index of the tile's (row 0, column 0) in this plane
+  __device__ __forceinline__ TileRows(const uint32_t* words, int64_t e0)
+      : w0(words + (e0 - (e0 & (kPer - 1))) / kPer), s0((int)(e0 & (kPer - 1))) {}
+  // row r's first word and the place of its first element (column 0) in it
+  __device__ __forceinline__ const uint32_t* row(int r, int in_w) const {
+    return w0 + (s0 + r * in_w) / kPer;
+  }
+  __device__ __forceinline__ int shift(int r, int in_w) const {
+    return (s0 + r * in_w) & (kPer - 1);
+  }
+};
+
+// Put one plane's input tile in flight into a slot: the threads walk its
+// words row by row, a warp's lanes along a row. On a tile that crosses the
+// plane's edge (EDGE) a word is read only if it holds an element of the
+// plane (tile columns [lo, hi) of rows inside it), and zero-filled else.
+template <typename T, bool EDGE>
+__device__ __forceinline__ void issue_tile(const TileRows<T>& t, float* slot, const K4Params& p,
+                                           int iy0, int lo, int hi, const Walk& words) {
+  constexpr int kPer = TileRows<T>::kPer;
+  for (Walk it = words; it.slow < p.ih; it.next()) {
+    const int r = it.slow, j = it.fast;
+    const int c = j * kPer - t.shift(r, p.in_w);          // tile column of its first element
+    const bool fetch =
+        !EDGE || ((unsigned)(iy0 + r) < (unsigned)p.in_h && c < hi && c + kPer > lo);
+    cp_async4(slot + r * p.p_in + j, t.row(r, p.in_w) + j, fetch);
+  }
+  cp_async_commit();
+}
+
+// 2. upsample along x: ih rows, mw columns in runs of kRun, from the landed
+//    raw tile, scaled and its bias added; on a tile that crosses the plane's
+//    edge (EDGE) what lies outside it is zero
+template <typename T, int UP, int NQ, bool EDGE>
+__device__ __forceinline__ void x_up_pass(const TileRows<T>& t, const float* slot, float* s_hu,
+                                          const K4Params& p, int iy0, int ix0, float a, float b,
+                                          const Walk& rows) {
+  constexpr int kWinU = (kRun - 1 + UP - 1) / UP + NQ;
+  const int runs = p.mw / kRun;
+  for (Walk it = rows; it.slow < runs; it.next()) {
+    const int r = it.fast, c0 = it.slow * kRun;
+    const T* src =
+        reinterpret_cast<const T*>(slot + r * p.p_in) + t.shift(r, p.in_w) + c0 / UP;
+    const bool row_in = !EDGE || (unsigned)(iy0 + r) < (unsigned)p.in_h;
+    float win[kWinU];
+#pragma unroll
+    for (int i = 0; i < kWinU; ++i) {
+      const float v = to_f32(src[i]) * a + b;
+      win[i] = !EDGE || (row_in && (unsigned)(ix0 + c0 / UP + i) < (unsigned)p.in_w) ? v : 0.f;
+    }
+    float acc[kRun];
+    up_run<UP, NQ>(win, p, acc);
+    float* dst = s_hu + r * p.p_hu + c0;
+#pragma unroll
+    for (int u = 0; u < kRun; ++u) dst[u] = acc[u];
+  }
+}
+
 template <typename T, int UP, int DOWN, int NQ, int KD>
 __global__ void __launch_bounds__(kThreads) filtered_lrelu_kernel(
     const T* __restrict__ x, const float* __restrict__ bias,
     const float* __restrict__ in_scale, const float* __restrict__ out_scale, T* __restrict__ y,
-    const K4Params p, const int plane0) {
+    const K4Params p) {
   constexpr int kWinU = (kRun - 1 + UP - 1) / UP + NQ;
   constexpr int kWinD = (kDownRun - 1) * DOWN + KD;
   extern __shared__ float smem[];
-  float* s_in = smem;              // region A: the input tile
-  float* s_hd = smem;              // region A, later: the x-downsampled tile
   float* s_hu = smem + p.off_hu;   // region B: the x-upsampled tile
+  float* s_hd = smem + p.off_hu;   // region B, later: the x-downsampled tile
   float* s_mid = smem + p.off_mid; // region C: the upsampled, activated tile
   const int tid = threadIdx.x;
-  const int plane = plane0 + blockIdx.z;
+  const int plane0 = blockIdx.z * p.pz;
+  const int n = min(p.pz, p.planes - plane0);     // planes this block walks
+  // the tile, the same in every plane: the upsampled tile starts on phase 0,
+  // so (m0 - pad0) is a multiple of UP
   const int oy0 = blockIdx.y * p.th, ox0 = blockIdx.x * p.tw;
-  // the upsampled tile starts on phase 0, so (m0 - pad0) is a multiple of UP
   const int iy0 = (oy0 * DOWN - p.dy - p.py0) / UP;
   const int ix0 = (ox0 * DOWN - p.dx - p.px0) / UP;
+  const int lo = max(0, -ix0), hi = min(p.iw, p.in_w - ix0);   // tile columns inside
+  const bool edge = iy0 < 0 || iy0 + p.ih > p.in_h || ix0 < 0 || ix0 + p.iw > p.in_w;
+  const int64_t plane_elems = (int64_t)p.in_h * p.in_w;
+  const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
+  const uint32_t* words = reinterpret_cast<const uint32_t*>(xa & ~(uintptr_t)3);
+  // element index of the tile's (row 0, column 0) in the next plane to issue
+  int64_t e0 = (int64_t)((xa & 3) / sizeof(T)) + plane0 * plane_elems +
+               (int64_t)iy0 * p.in_w + ix0;
+  TileRows<T> t(words, e0);
+  // the passes' walks: the input tile's words (as many a row as its
+  // elements take from any place in a word), then each pass's items
+  constexpr int kPer = TileRows<T>::kPer;
+  const Walk w_in(tid, (p.iw + kPer - 1) / kPer + kPer - 1);
+  const Walk w_xu(tid, p.ih), w_yu(tid, p.mw), w_xd(tid, p.mh_used), w_yd(tid, p.tw);
+  // the first plane's input, bias and scales
+  if (edge)
+    issue_tile<T, true>(t, smem, p, iy0, lo, hi, w_in);
+  else
+    issue_tile<T, false>(t, smem, p, iy0, lo, hi, w_in);
+  float b_next = bias[plane0 % p.channels];
+  float a_next = in_scale != nullptr ? in_scale[plane0] : 1.f;
+  float o_next = out_scale != nullptr ? out_scale[plane0] : 1.f;
 
-  // 1. the input tile, scaled and its bias added, zeros outside the plane: a
-  //    warp a row, its lanes along the row, kLoads loads in flight a thread
-  {
-    const float b = bias[plane % p.channels];
-    const float a = in_scale != nullptr ? in_scale[plane] : 1.f;
-    const T* xp = x + (int64_t)plane * p.in_h * p.in_w;
-    const int lane = tid & 31, warp = tid >> 5;
-    const int cols = (p.iw + 31) >> 5;            // 32-column strips of a row
-    const int items = p.ih * cols;                // (row, strip) pairs
-    for (int base = warp; base < items; base += kWarps * kLoads) {
-      float v[kLoads];
+  for (int k = 0; k < n; ++k) {
+    const int plane = plane0 + k;
+    const float b = b_next, a = a_next, o = o_next;
+    const TileRows<T> cur = t;
+    const float* slot = smem + (k & 1) * p.slot;
+    // 1. this plane's input has landed (the barrier also ends the last
+    //    plane's reads of region B and of the other slot); the next
+    //    plane's goes in flight
+    cp_async_wait();
+    __syncthreads();
+    if (k + 1 < n) {
+      e0 += plane_elems;
+      t = TileRows<T>(words, e0);
+      float* next = smem + ((k + 1) & 1) * p.slot;
+      if (edge)
+        issue_tile<T, true>(t, next, p, iy0, lo, hi, w_in);
+      else
+        issue_tile<T, false>(t, next, p, iy0, lo, hi, w_in);
+      b_next = bias[(plane + 1) % p.channels];
+      if (in_scale != nullptr) a_next = in_scale[plane + 1];
+      if (out_scale != nullptr) o_next = out_scale[plane + 1];
+    }
+
+    // 2. upsample along x
+    if (edge)
+      x_up_pass<T, UP, NQ, true>(cur, slot, s_hu, p, iy0, ix0, a, b, w_xu);
+    else
+      x_up_pass<T, UP, NQ, false>(cur, slot, s_hu, p, iy0, ix0, a, b, w_xu);
+    __syncthreads();
+
+    // 3. upsample along y, then bias-free leaky ReLU, gain and clamp: mh rows
+    {
+      const int runs = p.mh / kRun;
+      for (Walk it = w_yu; it.slow < runs; it.next()) {
+        const int c = it.fast, r0 = it.slow * kRun;
+        const float* src = s_hu + (r0 / UP) * p.p_hu + c;
+        float win[kWinU];
 #pragma unroll
-      for (int j = 0; j < kLoads; ++j) {
-        const int it = base + j * kWarps;
-        const int r = it / cols, c = (it - r * cols) * 32 + lane;
-        const int iy = iy0 + r, ix = ix0 + c;
-        v[j] = (it < items && iy >= 0 && iy < p.in_h && ix >= 0 && ix < p.in_w)
-                   ? to_f32(xp[(int64_t)iy * p.in_w + ix]) * a + b : 0.f;
+        for (int i = 0; i < kWinU; ++i) win[i] = src[i * p.p_hu];
+        float acc[kRun];
+        up_run<UP, NQ>(win, p, acc);
+        float* dst = s_mid + r0 * p.p_mid + c;
+#pragma unroll
+        for (int u = 0; u < kRun; ++u) dst[u * p.p_mid] = activate(acc[u], p);
       }
+    }
+    __syncthreads();
+
+    // 4. downsample along x: the mh_used rows the y pass reads, tw columns
+    {
+      const int runs = p.tw / kDownRun;
+      for (Walk it = w_xd; it.slow < runs; it.next()) {
+        const int r = it.fast, t0 = it.slow * kDownRun;
+        const float* src = s_mid + r * p.p_mid + p.dx + t0 * DOWN;
+        float win[kWinD];
 #pragma unroll
-      for (int j = 0; j < kLoads; ++j) {
-        const int it = base + j * kWarps;
-        const int r = it / cols, c = (it - r * cols) * 32 + lane;
-        if (it < items && c < p.iw) s_in[r * p.p_in + c] = v[j];
+        for (int i = 0; i < kWinD; ++i) win[i] = src[i];
+        float acc[kDownRun];
+        down_run<DOWN, KD>(win, p, acc);
+        float* dst = s_hd + r * p.p_hd + t0;
+#pragma unroll
+        for (int u = 0; u < kDownRun; ++u) dst[u] = acc[u];
       }
     }
-  }
-  __syncthreads();
+    __syncthreads();
 
-  // 2. upsample along x: ih rows, mw columns in runs of kRun
-  {
-    const int runs = p.mw / kRun;
-    for (Walk it(tid, p.ih); it.slow < runs; it.next()) {
-      const int r = it.fast, c0 = it.slow * kRun;
-      const float* src = s_in + r * p.p_in + c0 / UP;
-      float win[kWinU];
+    // 5. downsample along y and store: tw columns, th rows in runs
+    {
+      T* yp = y + (int64_t)plane * p.out_h * p.out_w;
+      const int runs = p.th / kDownRun;
+      for (Walk it = w_yd; it.slow < runs; it.next()) {
+        const int c = it.fast, t0 = it.slow * kDownRun;
+        const int ox = ox0 + c;
+        if (ox >= p.out_w || oy0 + t0 >= p.out_h) continue;
+        const float* src = s_hd + (p.dy + t0 * DOWN) * p.p_hd + c;
+        float win[kWinD];
 #pragma unroll
-      for (int i = 0; i < kWinU; ++i) win[i] = src[i];
-      float acc[kRun];
-      up_run<UP, NQ>(win, p, acc);
-      float* dst = s_hu + r * p.p_hu + c0;
+        for (int i = 0; i < kWinD; ++i) win[i] = src[i * p.p_hd];
+        float acc[kDownRun];
+        down_run<DOWN, KD>(win, p, acc);
 #pragma unroll
-      for (int u = 0; u < kRun; ++u) dst[u] = acc[u];
-    }
-  }
-  __syncthreads();
-
-  // 3. upsample along y, then bias-free leaky ReLU, gain and clamp: mh rows
-  {
-    const int runs = p.mh / kRun;
-    for (Walk it(tid, p.mw); it.slow < runs; it.next()) {
-      const int c = it.fast, r0 = it.slow * kRun;
-      const float* src = s_hu + (r0 / UP) * p.p_hu + c;
-      float win[kWinU];
-#pragma unroll
-      for (int i = 0; i < kWinU; ++i) win[i] = src[i * p.p_hu];
-      float acc[kRun];
-      up_run<UP, NQ>(win, p, acc);
-      float* dst = s_mid + r0 * p.p_mid + c;
-#pragma unroll
-      for (int u = 0; u < kRun; ++u) dst[u * p.p_mid] = activate(acc[u], p);
-    }
-  }
-  __syncthreads();
-
-  // 4. downsample along x: the mh_used rows the y pass reads, tw columns
-  {
-    const int runs = p.tw / kDownRun;
-    for (Walk it(tid, p.mh_used); it.slow < runs; it.next()) {
-      const int r = it.fast, t0 = it.slow * kDownRun;
-      const float* src = s_mid + r * p.p_mid + p.dx + t0 * DOWN;
-      float win[kWinD];
-#pragma unroll
-      for (int i = 0; i < kWinD; ++i) win[i] = src[i];
-      float acc[kDownRun];
-      down_run<DOWN, KD>(win, p, acc);
-      float* dst = s_hd + r * p.p_hd + t0;
-#pragma unroll
-      for (int u = 0; u < kDownRun; ++u) dst[u] = acc[u];
-    }
-  }
-  __syncthreads();
-
-  // 5. downsample along y and store: tw columns, th rows in runs
-  {
-    T* yp = y + (int64_t)plane * p.out_h * p.out_w;
-    const float a = out_scale != nullptr ? out_scale[plane] : 1.f;
-    const int runs = p.th / kDownRun;
-    for (Walk it(tid, p.tw); it.slow < runs; it.next()) {
-      const int t = it.fast, t0 = it.slow * kDownRun;
-      const int ox = ox0 + t;
-      if (ox >= p.out_w || oy0 + t0 >= p.out_h) continue;
-      const float* src = s_hd + (p.dy + t0 * DOWN) * p.p_hd + t;
-      float win[kWinD];
-#pragma unroll
-      for (int i = 0; i < kWinD; ++i) win[i] = src[i * p.p_hd];
-      float acc[kDownRun];
-      down_run<DOWN, KD>(win, p, acc);
-#pragma unroll
-      for (int u = 0; u < kDownRun; ++u) {
-        const int oy = oy0 + t0 + u;
-        if (oy < p.out_h) yp[(int64_t)oy * p.out_w + ox] = from_f32<T>(acc[u] * a);
+        for (int u = 0; u < kDownRun; ++u) {
+          const int oy = oy0 + t0 + u;
+          if (oy < p.out_h) yp[(int64_t)oy * p.out_w + ox] = from_f32<T>(acc[u] * o);
+        }
       }
     }
   }
@@ -277,15 +387,10 @@ int launch(const K4Params& p, const void* x, const void* b, const float* in_scal
     if (e != cudaSuccess) return (int)e;
     smem_set = p.smem_bytes;
   }
-  for (int plane0 = 0; plane0 < p.planes; plane0 += 65535) {
-    const int n = p.planes - plane0 < 65535 ? p.planes - plane0 : 65535;
-    kernel<<<dim3(p.gx, p.gy, n), kThreads, p.smem_bytes, s>>>(
-        static_cast<const T*>(x), static_cast<const float*>(b), in_scale, out_scale,
-        static_cast<T*>(y), p, plane0);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
-  return 0;
+  kernel<<<dim3(p.gx, p.gy, p.gz), kThreads, p.smem_bytes, s>>>(
+      static_cast<const T*>(x), static_cast<const float*>(b), in_scale, out_scale,
+      static_cast<T*>(y), p);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -317,7 +422,8 @@ extern "C" int filtered_lrelu_run(const K4Params* p, const void* x, const void* 
                                   const void* in_scale, const void* out_scale, void* y,
                                   void* stream) {
   if (p->planes < 1 || p->th % kDownRun || p->tw % kDownRun || p->mh % kRun ||
-      p->mw % kRun || p->smem_bytes > 227 * 1024)
+      p->mw % kRun || p->smem_bytes > 227 * 1024 || p->pz < 1 || p->gz > 65535 ||
+      (int64_t)p->pz * p->gz < p->planes || (int64_t)p->pz * (p->gz - 1) >= p->planes)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* si = static_cast<const float*>(in_scale);

@@ -29,7 +29,10 @@ float32.
 Bound on an H100: the FIR FMAs on the CUDA cores and the bytes, about
 equally at the published 1024² layers (one read of the input, one write of
 the output; the upsampled plane is four times the output and never leaves
-shared memory). The source says what its design does about that.
+shared memory). The source says what its design does about that: a block
+owns one output tile and walks a run of planes of it, the next plane's
+input in flight while the current one is filtered; the plan chooses the
+tile and the run from the shape (:func:`choose_tile`, :func:`plane_walk`).
 
 * :func:`filtered_lrelu_plain` is the plain version: upfirdn2d → bias, act,
   clamp → upfirdn2d, each filter applied as two 1-D passes.
@@ -38,8 +41,10 @@ shared memory). The source says what its design does about that.
   shapes alone under fake tensors. It has no autograd formula: nothing
   differentiates through StyleGAN3 in the port yet.
 * :func:`filtered_lrelu_cuda` launches K4 from a launch plan made once per
-  shape (:func:`plan_for`), counting ``filtered_lrelu_cuda.launches`` and
-  ``filtered_lrelu_cuda.plan_misses`` (a plan made anew).
+  shape (:func:`plan_for`), counting ``filtered_lrelu_cuda.launches``,
+  ``filtered_lrelu_cuda.plan_misses`` (a plan made anew) and
+  ``filtered_lrelu_cuda.prefetched_planes`` (planes whose input a block had
+  in flight before it needed them: blocks × (planes walked − 1)).
 """
 
 from __future__ import annotations
@@ -61,6 +66,12 @@ RUN = 8            # rows (columns) of the upsampled tile one thread makes in a 
 DOWN_RUN = 4       # outputs one thread makes in a downsampling pass
 TILES = tuple(range(16, 41, 4))   # the output tile's sides the plan chooses from
 MAX_SMEM = 96 * 1024               # at least two blocks an SM
+# the H100 a plan is made for: SMs, shared memory an SM, shared memory the
+# card keeps back a block, resident blocks an SM at 256 threads a block
+SMS, SM_SMEM, BLOCK_SMEM_RESERVED, MAX_BLOCKS_SM = 132, 228 * 1024, 1024, 8
+WAVES = 8          # waves of blocks a layer keeps at the least (plane_walk)
+MAX_WALK = 32      # planes a block walks at the most (plane_walk)
+MAX_GRID_Z = 65535
 
 
 def output_shape(in_h: int, in_w: int, ku: int, kd: int, up: int, down: int,
@@ -132,19 +143,21 @@ class _K4Params(ctypes.Structure):
     _fields_ = [(name, ctypes.c_int) for name in (
         "dtype", "up", "down", "planes", "channels", "in_h", "in_w", "out_h", "out_w",
         "py0", "px0", "nq", "kd", "th", "tw", "dy", "dx", "mh", "mw", "mh_used", "ih", "iw",
-        "p_in", "p_hu", "p_mid", "p_hd", "off_hu", "off_mid", "gx", "gy",
-        "smem_bytes")] + [
+        "p_in", "p_hu", "p_mid", "p_hd", "slot", "off_hu", "off_mid", "gx", "gy", "gz",
+        "pz", "smem_bytes")] + [
         ("gain", ctypes.c_float), ("slope", ctypes.c_float), ("clamp", ctypes.c_float),
         ("fu", ctypes.c_float * MAX_TAPS), ("fd", ctypes.c_float * MAX_TAPS)]
 
 
 class K4Plan(NamedTuple):
     """Everything a K4 launch needs, made once per (input shape, dtype,
-    device, filters, up, down, pad, gain, slope, clamp): the output shape
-    and the C arguments (``params``, passed by pointer)."""
+    device, filters, up, down, pad, gain, slope, clamp): the output shape,
+    the C arguments (``params``, passed by pointer; ``params.pz`` planes a
+    block walks) and the planes a launch prefetches."""
     out_shape: Tuple[int, int, int, int]
     params: _K4Params
     device_index: int
+    prefetched: int
 
 
 def _ceil(a: int, b: int) -> int:
@@ -157,45 +170,75 @@ def _odd(n: int) -> int:
     return n | 1
 
 
-def tile_layout(up: int, down: int, nq: int, kd: int, pad, th: int, tw: int):
+def slot_words(iw: int, itemsize: int) -> int:
+    """4-byte words a row of an input slot holds: ``iw`` elements from any
+    element of a word on (a bf16 row may start on a word's second half)."""
+    per = 4 // itemsize
+    return _ceil(iw, per) + per - 1
+
+
+def tile_layout(up: int, down: int, nq: int, kd: int, pad, th: int, tw: int,
+                itemsize: int = 4):
     """The shared-memory tiles of one block (an output tile of ``th`` × ``tw``)
-    for ``nq`` taps a phase of the up filter and ``kd`` of the down filter:
-    the phase offsets (dy, dx) that put the upsampled tile's first row and
-    column on phase 0, the upsampled tile (mh × mw, whole runs; ``mh_used``
-    rows feed the downsampling), the input tile (ih × iw), the odd row
-    pitches and the float offsets of the three regions: region A holds the
-    input tile and later the x-downsampled tile, region B the x-upsampled
-    tile, region C the upsampled tile."""
+    for ``nq`` taps a phase of the up filter, ``kd`` of the down filter and
+    input elements of ``itemsize`` bytes: the phase offsets (dy, dx) that put
+    the upsampled tile's first row and column on phase 0, the upsampled tile
+    (mh × mw, whole runs; ``mh_used`` rows feed the downsampling), the input
+    tile (ih × iw), the odd row pitches (4-byte words) and the regions' word
+    offsets: two input slots (``slot`` words each; the raw input of the
+    plane being filtered and of the next), region B the x-upsampled tile and
+    later the x-downsampled tile, region C the upsampled tile."""
     px0, _, py0, _ = normalize_pad(pad)
     dy, dx = (-py0) % up, (-px0) % up
     mh_used = dy + (th - 1) * down + kd
     mh = _ceil(mh_used, RUN) * RUN
     mw = _ceil(dx + (tw - 1) * down + kd, RUN) * RUN
     ih, iw = mh // up + nq, mw // up + nq
-    p_in, p_hu, p_mid, p_hd = _odd(iw), _odd(mw), _odd(mw), _odd(tw)
-    size_a = max(ih * p_in, mh_used * p_hd)
-    off_hu = size_a
-    off_mid = off_hu + ih * p_hu
+    p_in, p_hu, p_mid, p_hd = _odd(slot_words(iw, itemsize)), _odd(mw), _odd(mw), _odd(tw)
+    slot = ih * p_in
+    off_hu = 2 * slot
+    off_mid = off_hu + max(ih * p_hu, mh_used * p_hd)
     total = off_mid + mh * p_mid
     fmas = (ih * mw + mh * mw) * nq + (mh_used + th) * tw * kd
     return dict(nq=nq, dy=dy, dx=dx, mh=mh, mw=mw, mh_used=mh_used, ih=ih, iw=iw,
-                p_in=p_in, p_hu=p_hu, p_mid=p_mid, p_hd=p_hd, off_hu=off_hu,
+                p_in=p_in, p_hu=p_hu, p_mid=p_mid, p_hd=p_hd, slot=slot, off_hu=off_hu,
                 off_mid=off_mid, smem_bytes=4 * total, th=th, tw=tw, fmas=fmas)
 
 
-def choose_tile(out_h: int, out_w: int, up: int, down: int, nq: int, kd: int, pad) -> dict:
+def choose_tile(out_h: int, out_w: int, up: int, down: int, nq: int, kd: int, pad,
+                itemsize: int = 4) -> dict:
     """The square tile of :data:`TILES` whose blocks do the fewest FMAs and
     loads over the whole plane (a tile's halo against the plane's ragged
-    edge), within :data:`MAX_SMEM`; its :func:`tile_layout`."""
+    edge), within :data:`MAX_SMEM` with both input slots; its
+    :func:`tile_layout`."""
     best = None
     for t in TILES:
-        lay = tile_layout(up, down, nq, kd, pad, t, t)
+        lay = tile_layout(up, down, nq, kd, pad, t, t, itemsize)
         if lay["smem_bytes"] > MAX_SMEM:
             continue
         cost = _ceil(out_h, t) * _ceil(out_w, t) * (lay["fmas"] + lay["ih"] * lay["iw"])
         if best is None or cost < best[0]:
             best = (cost, lay)
     return best[1]
+
+
+def resident_blocks(smem_bytes: int) -> int:
+    """Blocks of K4 an SM holds at once, by their shared memory."""
+    return max(1, min(MAX_BLOCKS_SM, SM_SMEM // (smem_bytes + BLOCK_SMEM_RESERVED)))
+
+
+def plane_walk(planes: int, tiles: int, smem_bytes: int) -> Tuple[int, int]:
+    """(pz, gz): each block walks ``pz`` planes of its tile (the last block
+    of a tile the rest), ``gz`` blocks a tile along the planes. ``pz`` is as
+    large as keeps :data:`WAVES` full waves of blocks on the card (its SMs
+    times :func:`resident_blocks`), at most :data:`MAX_WALK` (past it the
+    block's set-up is paid off and the last wave's tail only grows), and at
+    least 1; the planes are then shared out evenly among the ``gz``
+    blocks."""
+    wave = SMS * resident_blocks(smem_bytes)
+    pz = max(1, min(MAX_WALK, planes * tiles // (WAVES * wave)), _ceil(planes, MAX_GRID_Z))
+    gz = _ceil(planes, pz)
+    return _ceil(planes, gz), gz
 
 
 # (up, down, taps a phase of fu, taps of fd) that the kernel has its own
@@ -246,7 +289,10 @@ def make_plan(in_shape, dtype: torch.dtype, device: torch.device, fu, fd, up: in
         raise ValueError(f"{what}: empty output {out_h}x{out_w}")
     px0, _, py0, _ = normalize_pad(pad)
     nq, kd = instantiated_taps(up, down, len(fu), len(fd))
-    lay = choose_tile(out_h, out_w, up, down, nq, kd, pad)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    lay = choose_tile(out_h, out_w, up, down, nq, kd, pad, itemsize)
+    gx, gy = _ceil(out_w, lay["tw"]), _ceil(out_h, lay["th"])
+    pz, gz = plane_walk(n * c, gx * gy, lay["smem_bytes"])
     taps_u = np.zeros(MAX_TAPS, np.float32)
     taps_u[:] = phase_taps(fu, up).ravel()
     taps_d = np.zeros(MAX_TAPS, np.float32)
@@ -255,12 +301,13 @@ def make_plan(in_shape, dtype: torch.dtype, device: torch.device, fu, fd, up: in
         _DTYPE_CODE[dtype], up, down, n * c, c, h, w, out_h, out_w, py0, px0, nq,
         kd, lay["th"], lay["tw"], lay["dy"], lay["dx"], lay["mh"], lay["mw"], lay["mh_used"],
         lay["ih"], lay["iw"], lay["p_in"], lay["p_hu"], lay["p_mid"], lay["p_hd"],
-        lay["off_hu"], lay["off_mid"], _ceil(out_w, lay["tw"]), _ceil(out_h, lay["th"]),
+        lay["slot"], lay["off_hu"], lay["off_mid"], gx, gy, gz, pz,
         lay["smem_bytes"], float(gain), float(slope), -1.0 if clamp is None else float(clamp),
         (ctypes.c_float * MAX_TAPS)(*taps_u.tolist()),
         (ctypes.c_float * MAX_TAPS)(*taps_d.tolist()))
     return K4Plan((n, c, out_h, out_w), params,
-                  device.index if device.index is not None else torch.cuda.current_device())
+                  device.index if device.index is not None else torch.cuda.current_device(),
+                  gx * gy * (n * c - gz))
 
 
 _plans: Dict[tuple, K4Plan] = {}
@@ -307,6 +354,7 @@ def _launch(x, b, fu, fd, up, down, pad, gain, slope, clamp, in_scale=None,
             y.data_ptr(), torch._C._cuda_getCurrentRawStream(plan.device_index)),
             "filtered_lrelu_cuda")
     filtered_lrelu_cuda.launches += 1
+    filtered_lrelu_cuda.prefetched_planes += plan.prefetched
     return y
 
 
@@ -322,6 +370,7 @@ def filtered_lrelu_cuda(x: torch.Tensor, fu, fd, b: torch.Tensor, up: int, down:
 
 filtered_lrelu_cuda.launches = 0
 filtered_lrelu_cuda.plan_misses = 0
+filtered_lrelu_cuda.prefetched_planes = 0
 
 
 # --- the operator ---------------------------------------------------------------

@@ -16,7 +16,8 @@ reference has none).
   a StyleGAN3 generator opens one ``sg3.layer`` a layer
   (``models/stylegan3.py``: ``index``, ``rate``, ``size``, ``channels``);
 * :func:`counters`: the kernels' counters (launches, K3's argument builds
-  and launch-cache misses, K4's plans made) by dotted name;
+  and launch-cache misses, K4's plans made and planes prefetched) by dotted
+  name;
 * :class:`StepTimer`: wall-clock step timing with percentile summaries, for
   a training loop's observability without a profiler. On the card each
   step ends with ``torch.cuda.synchronize()``, so that a step's time is its
@@ -61,7 +62,9 @@ def counters() -> Dict[str, int]:
     ConvBlock's folds and packed weights made anew), K3's launch-cache
     misses (``fused_conv_block_cuda.cache_misses``: a launch checked and
     planned anew) and K4's (``filtered_lrelu_cuda.plan_misses``: a launch
-    plan made anew). They count from the process's start."""
+    plan made anew; ``filtered_lrelu_cuda.prefetched_planes``: planes whose
+    input a block had in flight before it needed them). They count from the
+    process's start."""
     from ..ops import filtered_lrelu, fused_act, fused_conv_block, upfirdn2d_kernel
     fns = (upfirdn2d_kernel.upfirdn2d_cuda, upfirdn2d_kernel.upfirdn2d_bwd_cuda,
            fused_act.fused_bias_act_cuda, fused_act.fused_bias_act_bwd_cuda,

@@ -173,7 +173,8 @@ def test_counters_and_k3_argument_builds(monkeypatch, inference_weights):
     keys = profiling.counters()
     assert set(LAUNCH_COUNTERS) | {"fused_conv_block.args_built",
                                    "fused_conv_block_cuda.cache_misses",
-                                   "filtered_lrelu_cuda.plan_misses"} == set(keys)
+                                   "filtered_lrelu_cuda.plan_misses",
+                                   "filtered_lrelu_cuda.prefetched_planes"} == set(keys)
     monkeypatch.setattr(fan_mod, "fused_convblock_enabled",
                         lambda p, x: p.downsample is None and x.shape[1] == k3.CHANNELS)
     with torch.inference_mode(inference_weights):

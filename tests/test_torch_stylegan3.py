@@ -171,23 +171,56 @@ def test_k4_plain_scales_each_plane_on_the_way_in_and_out():
     assert (got - want).abs().max().item() <= 1e-6 * want.abs().max().item()
 
 
-def _replay(x, b, fu, fd, up, down, pad, gain, slope, clamp):
-    """K4's tiles and index arithmetic (``csrc/filtered_lrelu.cu``) replayed
-    pass by pass in numpy, as the launch plan lays them out."""
+def _replay(x, b, fu, fd, up, down, pad, gain, slope, clamp, in_scale=None, out_scale=None,
+            itemsize=4, e0=0, pz=None):
+    """K4's schedule (``csrc/filtered_lrelu.cu``) replayed in numpy, as the
+    launch plan lays it out: a block a tile walks ``pz`` planes (the plan's
+    walk unless given), the next plane's input landing in the other slot
+    before the current one is filtered; every region in one shared memory
+    of the plan's size, a word a row of ``mem`` holding ``4 / itemsize``
+    elements (a float of regions B and C in its first column), so that a
+    region that overlapped a live one would spoil the answer. The input
+    starts ``e0`` elements past a 4-byte boundary; what a fetched word holds
+    outside the plane is NaN. Returns the output and how often each (tile,
+    plane) was made."""
     n, c, h, w = x.shape
+    planes = n * c
     fu, fd = k4._taps(fu), k4._taps(fd)
     nq, kd = k4.instantiated_taps(up, down, len(fu), len(fd))
     px0, _, py0, _ = pad
     oh, ow = k4.output_shape(h, w, len(fu), len(fd), up, down, pad)
-    lay = k4.choose_tile(oh, ow, up, down, nq, kd, pad)
-    th, tw, run, drun = lay["th"], lay["tw"], k4.RUN, k4.DOWN_RUN
+    lay = k4.choose_tile(oh, ow, up, down, nq, kd, pad, itemsize)
+    th, tw, run, drun, per = lay["th"], lay["tw"], k4.RUN, k4.DOWN_RUN, 4 // itemsize
+    ih, iw, mh, mw, mh_used = lay["ih"], lay["iw"], lay["mh"], lay["mw"], lay["mh_used"]
+    p_in, p_hu, p_mid, p_hd = lay["p_in"], lay["p_hu"], lay["p_mid"], lay["p_hd"]
+    gx, gy = -(-ow // tw), -(-oh // th)
+    if pz is None:
+        pz, gz = k4.plane_walk(planes, gx * gy, lay["smem_bytes"])
+    else:
+        gz = -(-planes // pz)
+    assert pz * (gz - 1) < planes <= pz * gz
     stride = k4.MAX_TAPS // up
     fph = k4.phase_taps(fu, up).ravel()
     fdf = np.zeros(k4.MAX_TAPS, np.float32)
     fdf[:len(fd)] = np.asarray(fd, np.float32)[::-1]
     wu, wd = (run - 1 + up - 1) // up + nq, (drun - 1) * down + kd
     phases = [((up - u % up) % up, (u + up - 1) // up) for u in range(run)]
-    xs, out = x.reshape(n * c, h, w).numpy(), np.zeros((n * c, oh, ow), np.float32)
+    # the input as the card holds it, behind e0 elements and before a spare
+    flat = np.concatenate([np.full(e0, np.nan, np.float32), x.numpy().ravel(),
+                           np.full(per, np.nan, np.float32)])
+    a_in = np.ones(planes, np.float32) if in_scale is None else in_scale.numpy().ravel()
+    a_out = np.ones(planes, np.float32) if out_scale is None else out_scale.numpy().ravel()
+    out = np.full((planes, oh, ow), np.nan, np.float32)
+    made = np.zeros((gy, gx, planes), np.int64)
+    words = lay["smem_bytes"] // 4
+    assert words == lay["off_mid"] + mh * p_mid and lay["off_hu"] == 2 * lay["slot"]
+    assert lay["slot"] == ih * p_in and p_in >= k4.slot_words(iw, itemsize)
+
+    def region(off, rows, pitch, cols):
+        """Word indices of a region's rows × cols, inside the shared memory."""
+        idx = off + np.arange(rows)[:, None] * pitch + np.arange(cols)[None]
+        assert idx.min() >= 0 and idx.max() < words
+        return idx
 
     def up_run(win):
         return np.stack([sum(fph[ph * stride + q] * win[st + q] for q in range(nq))
@@ -197,47 +230,88 @@ def _replay(x, b, fu, fd, up, down, pad, gain, slope, clamp):
         return np.stack([sum(fdf[k] * win[u * down + k] for k in range(kd))
                          for u in range(drun)])
 
-    for pl in range(n * c):
-        for oy0 in range(0, oh, th):
-            for ox0 in range(0, ow, tw):
-                assert (oy0 * down - lay["dy"] - py0) % up == 0
-                iy0 = (oy0 * down - lay["dy"] - py0) // up
-                ix0 = (ox0 * down - lay["dx"] - px0) // up
-                s_in = np.zeros((lay["ih"], lay["iw"]), np.float32)
-                ys, xs_ = np.arange(lay["ih"]) + iy0, np.arange(lay["iw"]) + ix0
-                ok = (ys[:, None] >= 0) & (ys[:, None] < h) & (xs_[None] >= 0) & (xs_[None] < w)
-                s_in[ok] = (xs[pl][np.clip(ys, 0, h - 1)][:, np.clip(xs_, 0, w - 1)]
-                            + b[pl % c].item())[ok]
-                s_hu = np.zeros((lay["ih"], lay["mw"]), np.float32)
-                for c0 in range(0, lay["mw"], run):
-                    win = s_in[:, c0 // up: c0 // up + wu].T
-                    assert win.shape[0] == wu
-                    s_hu[:, c0:c0 + run] = up_run(win).T
-                s_mid = np.zeros((lay["mh"], lay["mw"]), np.float32)
-                for r0 in range(0, lay["mh"], run):
-                    win = s_hu[r0 // up: r0 // up + wu]
-                    assert win.shape[0] == wu
-                    v = up_run(win)
-                    v = np.where(v < 0, v * slope, v) * gain
-                    s_mid[r0:r0 + run] = v if clamp is None else np.clip(v, -clamp, clamp)
-                s_hd = np.zeros((lay["mh_used"], tw), np.float32)
-                for t0 in range(0, tw, drun):
-                    s0 = lay["dx"] + t0 * down
-                    win = s_mid[:lay["mh_used"], s0:s0 + wd].T
-                    assert win.shape[0] == wd
-                    s_hd[:, t0:t0 + drun] = down_run(win).T
-                for t0 in range(0, th, drun):
-                    s0 = lay["dy"] + t0 * down
-                    win = s_hd[s0:s0 + wd]
-                    assert win.shape[0] == wd
-                    v = down_run(win)
-                    rows, cols = min(drun, oh - oy0 - t0), min(tw, ow - ox0)
-                    if rows > 0 and cols > 0:
-                        out[pl, oy0 + t0:oy0 + t0 + rows, ox0:ox0 + cols] = v[:rows, :cols]
-    return torch.from_numpy(out.reshape(n, c, oh, ow))
+    for ty in range(gy):
+        for tx in range(gx):
+            oy0, ox0 = ty * th, tx * tw
+            assert (oy0 * down - lay["dy"] - py0) % up == 0
+            iy0 = (oy0 * down - lay["dy"] - py0) // up
+            ix0 = (ox0 * down - lay["dx"] - px0) // up
+            lo, hi = max(0, -ix0), min(iw, w - ix0)
+            edge = iy0 < 0 or iy0 + ih > h or ix0 < 0 or ix0 + iw > w
+            for z in range(gz):
+                mem = np.full((words, per), np.nan, np.float64)
+                plane0 = z * pz
+                walked = min(pz, planes - plane0)
+
+                def issue(plane, slot):
+                    """A plane's input tile into a slot, word by word."""
+                    base = e0 + plane * h * w + iy0 * w + ix0
+                    nw = k4.slot_words(iw, itemsize)
+                    idx = region(slot * lay["slot"], ih, p_in, nw)
+                    for r in range(ih):
+                        e = base + r * w
+                        s = e % per
+                        for j in range(nw):
+                            col = j * per - s
+                            fetch = 0 <= iy0 + r < h and col < hi and col + per > lo
+                            first = e - s + j * per
+                            mem[idx[r, j]] = flat[first:first + per] if fetch else 0.0
+
+                issue(plane0, 0)
+                for k in range(walked):
+                    plane = plane0 + k
+                    if k + 1 < walked:
+                        issue(plane + 1, (k + 1) % 2)
+                    # 2. x-up from the landed raw tile: scale, bias, zeros outside
+                    slot = mem[k % 2 * lay["slot"]:(k % 2 + 1) * lay["slot"]].ravel()
+                    e_row = e0 + plane * h * w + iy0 * w + ix0 + np.arange(ih) * w
+                    halves = (np.arange(ih) * p_in * per + e_row % per)[:, None] + np.arange(iw)
+                    raw = slot[halves].astype(np.float32)
+                    v = raw * a_in[plane] + np.float32(b[plane % c].item())
+                    if edge:
+                        ys, xs = np.arange(ih) + iy0, np.arange(iw) + ix0
+                        inside = ((ys >= 0) & (ys < h))[:, None] & ((xs >= 0) & (xs < w))[None]
+                        v = np.where(inside, v, np.float32(0))
+                    assert not np.isnan(v).any()
+                    hu = region(lay["off_hu"], ih, p_hu, mw)
+                    for c0 in range(0, mw, run):
+                        win = v[:, c0 // up: c0 // up + wu].T
+                        assert win.shape[0] == wu
+                        mem[hu[:, c0:c0 + run], 0] = up_run(win).T
+                    # 3. y-up and the activation
+                    mid = region(lay["off_mid"], mh, p_mid, mw)
+                    s_hu = mem[hu, 0].astype(np.float32)
+                    for r0 in range(0, mh, run):
+                        win = s_hu[r0 // up: r0 // up + wu]
+                        assert win.shape[0] == wu
+                        u = up_run(win)
+                        u = np.where(u < 0, u * slope, u) * gain
+                        mem[mid[r0:r0 + run], 0] = u if clamp is None else np.clip(u, -clamp,
+                                                                                    clamp)
+                    # 4. x-down into region B
+                    s_mid = mem[mid, 0].astype(np.float32)
+                    hd = region(lay["off_hu"], mh_used, p_hd, tw)
+                    for t0 in range(0, tw, drun):
+                        s0 = lay["dx"] + t0 * down
+                        win = s_mid[:mh_used, s0:s0 + wd].T
+                        assert win.shape[0] == wd
+                        mem[hd[:, t0:t0 + drun], 0] = down_run(win).T
+                    # 5. y-down, the output scale, the store
+                    s_hd = mem[hd, 0].astype(np.float32)
+                    for t0 in range(0, th, drun):
+                        s0 = lay["dy"] + t0 * down
+                        win = s_hd[s0:s0 + wd]
+                        assert win.shape[0] == wd
+                        o = down_run(win) * a_out[plane]
+                        rows, cols = min(drun, oh - oy0 - t0), min(tw, ow - ox0)
+                        if rows > 0 and cols > 0:
+                            out[plane, oy0 + t0:oy0 + t0 + rows, ox0:ox0 + cols] = \
+                                o[:rows, :cols]
+                    made[ty, tx, plane] += 1
+    return torch.from_numpy(out.reshape(n, c, oh, ow)), made
 
 
-@pytest.mark.parametrize("up,down,ku,kd,pad,size", [
+REPLAYED = [
     (2, 2, 12, 12, (9, 8, 9, 8), 46),            # L1, L3, ... : two tiles a side
     (4, 2, 24, 12, (-6, -9, -6, -9), 18),         # L2, L4, ... L10
     (2, 2, 12, 12, (-11, -12, -11, -12), 40),     # L13, the crop to 1024
@@ -248,31 +322,81 @@ def _replay(x, b, fu, fd, up, down, pad, gain, slope, clamp):
     (2, 2, 8, 24, (12, 11, 12, 11), 21),
     (4, 1, 24, 3, (13, 12, 13, 12), 11),
     (4, 2, 16, 10, (14, 11, -3, 9), 17),
-], ids=["up2", "up4", "crop", "torgb", "generic_up", "generic_down", "generic_11",
-        "generic_22", "generic_41", "generic_42"])
-def test_kernel_tiles_replay_the_plain_version(up, down, ku, kd, pad, size):
+]
+REPLAYED_IDS = ["up2", "up4", "crop", "torgb", "generic_up", "generic_down", "generic_11",
+                "generic_22", "generic_41", "generic_42"]
+
+
+def _replay_case(up, down, ku, kd, pad, size, planes=(1, 7), scales=True, dtype=torch.float32):
+    """Inputs of a replay case (``planes`` as (N, C)), its plain version and
+    its arguments; per-plane scales that differ plane by plane."""
     gen = torch.Generator().manual_seed(size)
     fu = sg3.design_lowpass_filter(ku, 3.0, 2.0, 8.0 * up)
     fd = sg3.design_lowpass_filter(kd, 3.0, 2.0, 8.0 * up)
-    x = torch.randn(1, 2, size, size + 3, generator=gen)
-    b = torch.randn(2, generator=gen)
-    want = k4.filtered_lrelu_plain(x, fu, fd, b, up, down, pad, 1.41, 0.2, 1.0)
-    got = _replay(x, b, fu, fd, up, down, pad, 1.41, 0.2, 1.0)
+    x = torch.randn(*planes, size, size + 3, generator=gen).to(dtype).float()
+    b = torch.randn(planes[1], generator=gen)
+    s = {}
+    if scales:
+        s = dict(in_scale=0.5 + torch.arange(planes[0] * planes[1]).float().view(*planes) / 4,
+                 out_scale=2.0 - torch.arange(planes[0] * planes[1]).float().view(*planes) / 5)
+    args = (fu, fd, b, up, down, pad, 1.41, 0.2, 1.0)
+    want = k4.filtered_lrelu_plain(x, *args, **s)
+    return x, args, s, want
+
+
+@pytest.mark.parametrize("up,down,ku,kd,pad,size", REPLAYED, ids=REPLAYED_IDS)
+def test_kernel_tiles_replay_the_plain_version(up, down, ku, kd, pad, size):
+    """7 planes walked 4 at a time (a block of 4, a block of 3), each with
+    its own input and output scale."""
+    x, (fu, fd, b, *rest), s, want = _replay_case(up, down, ku, kd, pad, size)
+    got, made = _replay(x, b, fu, fd, *rest, **s, pz=4)
+    assert (made == 1).all()
     assert got.shape == want.shape
     assert (got - want).abs().max().item() <= 1e-5 * max(1.0, want.abs().max().item())
 
 
+@pytest.mark.parametrize("up,down,ku,kd,pad,size", REPLAYED, ids=REPLAYED_IDS)
+def test_kernel_bf16_slots_replay_the_plain_version(up, down, ku, kd, pad, size):
+    """bf16 input: two elements a word, rows of odd width starting on either
+    half, the tensor itself on a word's second half; 5 planes walked 2 at a
+    time."""
+    x, (fu, fd, b, *rest), s, want = _replay_case(up, down, ku, kd, pad, size, (1, 5),
+                                                  dtype=torch.bfloat16)
+    got, made = _replay(x, b, fu, fd, *rest, **s, itemsize=2, e0=1, pz=2)
+    assert (made == 1).all()
+    assert (got - want).abs().max().item() <= 1e-5 * max(1.0, want.abs().max().item())
+
+
+def test_replay_fails_a_plane_off_by_one():
+    """The replay's yardstick catches a plane read with its neighbour's
+    scales: planes that differ plane by plane."""
+    x, (fu, fd, b, *rest), s, want = _replay_case(*REPLAYED[1])
+    shifted = dict(in_scale=s["in_scale"].roll(1, dims=1), out_scale=s["out_scale"])
+    got, _ = _replay(x, b, fu, fd, *rest, **shifted, pz=4)
+    assert (got - want).abs().max().item() > 1e-2 * want.abs().max().item()
+
+
 def test_launch_plans_fit_the_card():
-    """Every published layer's plan: a specialised instantiation, tiles
-    within the shared memory the kernel asks for, whole runs."""
+    """Every published layer's plan, f32 and bf16: a specialised
+    instantiation, tiles with both input slots within the shared memory the
+    kernel asks for, whole runs; at a chunk of 16 frames a walk of at least
+    one plane, every plane in exactly one block, a grid the card takes."""
     g = sg3.Generator()
     for m in g.layers():
         ku, kd = len(m.up_taps or (1.0,)), len(m.down_taps or (1.0,))
         nq, kd_t = k4.instantiated_taps(m.up, m.down, ku, kd)
         assert (m.up, m.down, nq, kd_t) in k4.SPECIALIZED
-        lay = k4.choose_tile(m.out_size, m.out_size, m.up, m.down, nq, kd_t, m.padding)
-        assert lay["smem_bytes"] <= k4.MAX_SMEM
-        assert lay["mh"] % k4.RUN == 0 and lay["th"] % k4.DOWN_RUN == 0
+        for itemsize in (4, 2):
+            lay = k4.choose_tile(m.out_size, m.out_size, m.up, m.down, nq, kd_t, m.padding,
+                                 itemsize)
+            assert lay["smem_bytes"] <= k4.MAX_SMEM
+            assert lay["mh"] % k4.RUN == 0 and lay["th"] % k4.DOWN_RUN == 0
+            assert lay["slot"] >= lay["ih"] * k4.slot_words(lay["iw"], itemsize)
+            assert lay["off_hu"] >= 2 * lay["slot"]
+            assert lay["smem_bytes"] >= 4 * (lay["off_hu"] + lay["mh_used"] * lay["p_hd"])
+            planes, tiles = 16 * m.out_channels, (-(-m.out_size // lay["th"])) ** 2
+            pz, gz = k4.plane_walk(planes, tiles, lay["smem_bytes"])
+            assert pz >= 1 and pz * (gz - 1) < planes <= pz * gz and gz <= k4.MAX_GRID_Z
     with pytest.raises(ValueError, match="CUDA"):
         k4.make_plan((1, 1, 8, 8), torch.float32, torch.device("cpu"), None, None, 1, 1,
                      (0, 0, 0, 0), 1.0, 1.0, None)

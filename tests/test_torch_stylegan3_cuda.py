@@ -2,10 +2,13 @@
 at every layer shape of the published StyleGAN3-T at 1024² (the layer
 table of ``models/stylegan3.py``, a batch of 2; per-plane input and output
 scales on every other layer), in float32 and bf16; each instantiation
-zero-padded to 24 taps (every (up, down) pair) at a small shape; and
-the StyleGAN3 synthesis with K4 against the same synthesis through the
-plain version. ``chip_smoke.py`` [k4] holds the published shapes at the
-chunk of 16 the reenactment path runs.
+zero-padded to 24 taps (every (up, down) pair) at a small shape; L10-L13
+at the chunk's 16 frames with scales that differ plane by plane, and a
+frame count whose planes the plan's walk does not divide; K4's prefetch
+counter over a StyleGAN3-T chunk against its plans; and the StyleGAN3
+synthesis with K4 against the same synthesis through the plain version.
+``chip_smoke.py`` [k4] holds every published shape at the chunk of 16 the
+reenactment path runs.
 
 These need a CUDA card and nvcc; they are marked ``cuda`` and skip
 elsewhere (the fixture decides). Run them on the card with:
@@ -108,6 +111,112 @@ def test_k4_generic_instantiation_matches_plain(card, case, dtype):
     scale = max(1.0, want.float().abs().max().item())
     tol = 2e-5 if dtype == torch.float32 else 1e-2
     assert (got.float() - want.float()).abs().max().item() <= tol * scale
+
+
+def _plain_by_frames(x, args, scales, frames=4):
+    """The plain version a few frames a call (the upsampled plane of a chunk
+    of 16 at L10 alone is 23.7 GB)."""
+    return torch.cat([k4.filtered_lrelu_plain(
+        x[i:i + frames], *args, **{k: v[i:i + frames] for k, v in scales.items()})
+        for i in range(0, x.shape[0], frames)])
+
+
+def _distinct_scales(n, c, device):
+    """Per-plane input and output scales, each plane's unlike its
+    neighbours', so that a plane read with another's scales shows."""
+    i = torch.arange(n * c, device=device, dtype=torch.float32).view(n, c)
+    return dict(in_scale=0.5 + (i % 97) / 97, out_scale=1.5 - (i % 89) / 89)
+
+
+def _check_against_plain(m, idx, x, gen, dtype, scales):
+    b = torch.randn(m.out_channels, generator=gen, device=x.device)
+    gain, slope = (0.25, 1.0) if m.is_torgb else (2 ** 0.5, 0.2)
+    clamp = 64.0 if m.is_torgb else 256.0 if idx % 2 else 1.0
+    args = (m.up_taps, m.down_taps, b, m.up, m.down, m.padding, gain, slope, clamp)
+    got = k4.filtered_lrelu(x, *args, **scales)
+    torch.cuda.synchronize()
+    want = _plain_by_frames(x, args, scales)
+    assert got.shape == want.shape and got.dtype == dtype
+    scale = max(1.0, want.float().abs().max().item())
+    tol = 2e-5 if dtype == torch.float32 else 1e-2
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * scale, (err, scale)
+
+
+HIRES = [i for i, (n, _) in enumerate(LAYERS) if n.split("_")[0] in ("L10", "L11", "L12", "L13")]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("idx", HIRES, ids=[LAYERS[i][0] for i in HIRES])
+def test_k4_matches_plain_at_a_chunk_of_16(card, idx, dtype):
+    """L10-L13 at the chunk's 16 frames (1296, 816, 512 and 512 planes),
+    each plane with its own scales: the plane walk as the reenactment path
+    runs it."""
+    _, m = LAYERS[idx]
+    gen = torch.Generator(device=card).manual_seed(100 + idx)
+    conv_hw = m.in_size + m.conv_kernel - 1
+    x = (torch.randn(16, m.out_channels, conv_hw, conv_hw, generator=gen, device=card) * 3
+         ).to(dtype)
+    plan = k4.plan_for(x, k4._taps(m.up_taps), k4._taps(m.down_taps), m.up, m.down,
+                       k4.normalize_pad(m.padding), 2 ** 0.5, 0.2, 1.0)
+    assert plan.params.pz > 1
+    _check_against_plain(m, idx, x, gen, dtype, _distinct_scales(16, m.out_channels, card))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_k4_walk_with_a_ragged_last_block(card, dtype):
+    """L11's shape at a frame count whose planes the plan's walk does not
+    divide: the last block of each tile walks fewer planes."""
+    idx = HIRES[1]
+    _, m = LAYERS[idx]
+    conv_hw = m.in_size + m.conv_kernel - 1
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    nq, kd = k4.instantiated_taps(m.up, m.down, len(m.up_taps), len(m.down_taps))
+    lay = k4.choose_tile(m.out_size, m.out_size, m.up, m.down, nq, kd, m.padding, itemsize)
+    tiles = (-(-m.out_size // lay["th"])) ** 2
+
+    def walk(n):
+        return k4.plane_walk(n * m.out_channels, tiles, lay["smem_bytes"])[0]
+
+    n = next(n for n in range(1, 17) if walk(n) > 1 and n * m.out_channels % walk(n))
+    gen = torch.Generator(device=card).manual_seed(7)
+    x = (torch.randn(n, m.out_channels, conv_hw, conv_hw, generator=gen, device=card) * 3
+         ).to(dtype)
+    _check_against_plain(m, idx, x, gen, dtype, _distinct_scales(n, m.out_channels, card))
+
+
+def test_k4_prefetch_counter_after_a_stylegan3_chunk(card, monkeypatch):
+    """``filtered_lrelu_cuda.prefetched_planes`` over one StyleGAN3-T chunk
+    of 16 frames at the published widths: above zero, and the sum over the
+    chunk's 15 launches of their plans' blocks × (planes walked − 1)."""
+    from stylegan_directions_face_reenactment_tpu_torch.utils import profiling
+    from stylegan_directions_face_reenactment_tpu_torch.weights.stylegan3 import init_stylegan3
+    g = init_stylegan3(3, device=card)
+    z = torch.randn(16, 512, generator=torch.Generator(device=card).manual_seed(2), device=card)
+    plans, plan_for = [], k4.plan_for
+
+    def recorded(*a, **k):
+        plans.append(plan_for(*a, **k))
+        return plans[-1]
+
+    with torch.no_grad():
+        lat = sg3.style_to_wplus(g, [sg3.mapping(g, z)])
+        monkeypatch.setattr(k4, "plan_for", recorded)
+        before = profiling.counters()
+        sg3.synthesis(g, lat)
+        torch.cuda.synchronize()
+        after = profiling.counters()
+    want = 0
+    for plan in plans:
+        p = plan.params
+        walked = [min(p.pz, p.planes - z * p.pz) for z in range(p.gz)]
+        assert sum(walked) == p.planes and min(walked) >= 1
+        want += p.gx * p.gy * sum(w - 1 for w in walked)
+    assert len(plans) == 15 == after["filtered_lrelu_cuda.launches"] - before[
+        "filtered_lrelu_cuda.launches"]
+    got = after["filtered_lrelu_cuda.prefetched_planes"] - before[
+        "filtered_lrelu_cuda.prefetched_planes"]
+    assert got == want > 0
 
 
 def test_k4_synthesis_matches_plain_synthesis(card, monkeypatch):
