@@ -91,7 +91,7 @@ non-zero without printing the last line:
     epoch on a tree of generated frames and their codes (cached
     coefficients), each with its launches and files; S3FD's ok frames; the
     synthetic (float32 and bf16 synthesis) and paired steps timed, with
-    exact launches a step (K3-bwd 0, K3's calls from its launch cache),
+    exact launches a step (K3-bwd 0, no K3 plan made after the warm-up),
     peak memory and a profile; (c) one grads-only synthetic step at batch 2
     with ``fan_frame`` on the card against the CPU (``train_card_vs_cpu``).
 
@@ -1021,7 +1021,7 @@ def grad_witness(frames, hproj, sfd_cpu):
         (g,) = torch.autograd.grad((heat * hproj.to(heat.device)).sum(), im)
         return g.double().cpu()
 
-    plain = lambda x, args, keep=True: k3.fused_conv_block_plain(x, args)  # noqa: E731
+    plain = lambda x, args: k3.fused_conv_block_plain(x, args)  # noqa: E731
     for damp in (1.0, GRAD_FAN_DAMP):
         fan_cpu = grad_fan(damp)
         fan_card = copy.deepcopy(fan_cpu).cuda()
@@ -2739,25 +2739,24 @@ def run_trainer_main(tag, flags, smi):
 
 def time_train_step(tag, step, smi, method):
     """A step's median ms (CUDA-synchronized host clock) after a warm-up,
-    its exact launches, K3's argument checks (none once its launch cache
-    holds the step's shapes), the peak memory, and a profile of
-    TRAIN_PROFILED steps (device busy share, time by kernel class)."""
+    its exact launches, K3's plans made (none once the warm-up made the
+    step's shapes'), the peak memory, and a profile of TRAIN_PROFILED steps
+    (device busy share, time by kernel class)."""
     from stylegan_directions_face_reenactment_tpu_torch.ops import fused_conv_block as k3
     for _ in range(TRAIN_WARM):
         step()
     torch.cuda.synchronize()
-    checks = []
-    real_check = k3._check
     times, counts = [], []
+    plans = k3.fused_conv_block_cuda.plan_misses
     torch.cuda.reset_peak_memory_stats()
-    with mock.patch.object(k3, "_check", lambda *a: (checks.append(1), real_check(*a))[1]):
-        for _ in range(TRAIN_TIMED):
-            reset_counts()
-            t0 = time.perf_counter()
-            loss = step()
-            torch.cuda.synchronize()
-            times.append(1e3 * (time.perf_counter() - t0))
-            counts.append(read_all_counts())
+    for _ in range(TRAIN_TIMED):
+        reset_counts()
+        t0 = time.perf_counter()
+        loss = step()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        counts.append(read_all_counts())
+    plans = k3.fused_conv_block_cuda.plan_misses - plans
     peak = torch.cuda.max_memory_allocated()
     want = train_step_launches(method)
     ms = statistics.median(times)
@@ -2766,9 +2765,9 @@ def time_train_step(tag, step, smi, method):
           f"synchronized), peak {peak} bytes ({peak / 2**30:.3f} GiB), loss "
           f"{float(loss['loss']):.4f}, on {smi}; launches a step "
           + ", ".join(f"{k} {v} (expected {want[k]})" for k, v in counts[-1].items())
-          + f"; K3 argument checks in the timed steps {len(checks)} (expected 0: launch cache)")
-    need(all(c == want for c in counts) and not checks,
-         f"[train] {tag}: launches {counts[-1]}, expected {want}; K3 checks {len(checks)}")
+          + f"; K3 plans made in the timed steps {plans} (expected 0)")
+    need(all(c == want for c in counts) and not plans,
+         f"[train] {tag}: launches {counts[-1]}, expected {want}; K3 plans {plans}")
     profile_request(f"[train] {tag}", f"{TRAIN_PROFILED} steps at batch {TRAIN_BATCH}",
                     lambda: [step() for _ in range(TRAIN_PROFILED)])
     return {"ms": ms, "ms_min": min(times), "ms_max": max(times), "peak_bytes": peak,

@@ -62,7 +62,9 @@
 //   every kSumSteps steps the two halves are added into float32 sums on
 //   the CUDA cores, rounded.
 //   The planes double the bytes a K step copies (about 200 FLOP a byte of
-//   activation), which still leaves the stage on its operations. A ring of
+//   activation). Neither the copies nor the products bound the stage alone:
+//   at 64x64 a call read 836 us, 658 us with its copies taken out and 579 us
+//   with its products taken out; the two meet at a barrier every K step. A ring of
 //   3 slots for N = 128 or 4 for N = 64 (one block an SM), copies two or
 //   three steps ahead, issued after the step's products.
 // * Small maps (B*H*W of a few thousand pixels or fewer) put too few tiles on
@@ -479,11 +481,54 @@ template <> struct Wgmma<128> {
   }
 };
 
+// The end both stage kernels share. `acc` is a thread's part of the tile's
+// f32 sums in the wgmma accumulator layout: thread (warp w of warpgroup g,
+// lane l) holds pixel rows 64 g + 16 w + l / 4 (+ 8) and channels
+// 8 j + 2 (l % 4) (+ 1), at acc[4 j + 2 hh] (+ 1) for the row + 8 hh. A
+// split (g.ws) writes its f32 partial; an unsplit tile is staged in shared
+// memory for epilogue_tile. A tile spans the stage's output channels (BN is
+// cout), so its first channel n0 is 0.
+template <typename T, int BN>
+__device__ __forceinline__ void stage_tail(const float (&acc)[BN / 2], const Gemm<T>& g,
+                                           uint8_t* smem, int m0, int n0, int split, int tid) {
+  const int lane = tid & 31, wq = (tid & 127) >> 5;
+  const int row = (tid >> 7) * 64 + wq * 16 + (lane >> 2), cq = (lane & 3) * 2;
+  if (g.ws != nullptr) {
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int m = m0 + row + 8 * hh, i = 4 * j + 2 * hh;
+        if (m < g.epi.m)
+          *reinterpret_cast<float2*>(
+              &g.ws[((size_t)split * g.epi.m + m) * g.epi.cout + n0 + j * 8 + cq]) =
+              make_float2(acc[i], acc[i + 1]);
+      }
+    return;
+  }
+  float* c = reinterpret_cast<float*>(smem);
+  int* off_px = reinterpret_cast<int*>(c + kBM * (BN + 1));
+  constexpr int ldc = BN + 1;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int i = 4 * j + 2 * hh;
+      c[(row + 8 * hh) * ldc + j * 8 + cq] = acc[i];
+      c[(row + 8 * hh) * ldc + j * 8 + cq + 1] = acc[i + 1];
+    }
+  __syncthreads();
+  epilogue_tile<T, BN, kBM>(c, off_px, m0, n0, g.epi, tid, kWgThreads);
+}
+
 // One bf16 stage tile (or, with g.ws, one split's partial of it): pixels
 // [m0, m0 + 128) x channels [n0, n0 + BN) over K steps [k0, k1). Warpgroup
 // g owns pixels m0 + 64 g .. + 63. Every thread copies 4 A rows and BN / 32
 // B rows (16 bytes of each) a step: rows tid / 8 + 32 j, column tid % 8,
 // stored at column (tid % 8) ^ (row % 8) of the row: the 128-byte swizzle.
+// n0 is 0 (grid.y is 1) but is read from blockIdx.y: with a constant 0,
+// ptxas gives the BN = 128 stage 122 registers for 120, and the bf16 stages
+// read 0.5-1.9 % slower on an H100.
 template <int BN>
 __global__ void __launch_bounds__(kWgThreads) fcb_stage_wgmma(const Gemm<bf16> g) {
   using Tile = WgTile<BN>;
@@ -554,36 +599,7 @@ __global__ void __launch_bounds__(kWgThreads) fcb_stage_wgmma(const Gemm<bf16> g
   wgmma_wait0();
   cp_async_wait<0>();
   __syncthreads();
-
-  // accumulator layout: thread (warp w of its warpgroup, lane l) holds rows
-  // 16 w + l / 4 (+ 8) and columns 8 j + 2 (l % 4) (+ 1)
-  const int lane = tid & 31, wq = (tid & 127) >> 5;
-  const int row = wg * 64 + wq * 16 + (lane >> 2), cq = (lane & 3) * 2;
-  if (g.ws != nullptr) {
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int m = m0 + row + 8 * hh;
-        if (m < m_total)
-          *reinterpret_cast<float2*>(
-              &g.ws[((size_t)split * m_total + m) * g.epi.cout + n0 + j * 8 + cq]) =
-              make_float2(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
-      }
-    return;
-  }
-  float* c = reinterpret_cast<float*>(smem);
-  int* off_px = reinterpret_cast<int*>(c + kBM * (BN + 1));
-  constexpr int ldc = BN + 1;
-#pragma unroll
-  for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      c[(row + 8 * hh) * ldc + j * 8 + cq] = acc[4 * j + 2 * hh];
-      c[(row + 8 * hh) * ldc + j * 8 + cq + 1] = acc[4 * j + 2 * hh + 1];
-    }
-  __syncthreads();
-  epilogue_tile<bf16, BN, kBM>(c, off_px, m0, n0, g.epi, tid, kWgThreads);
+  stage_tail<bf16, BN>(acc, g, smem, m0, n0, split, tid);
 }
 
 // ---- float32: three TF32 products on wgmma ---------------------------------
@@ -797,35 +813,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) fcb_stage_tf32(const Gemm<float
   }
   cp_async_wait<0>();
   __syncthreads();
-
-  // sum's layout: the bf16 stage's accumulator layout
-  const int lane = tid & 31, wq = (tid & 127) >> 5;
-  const int row = wg * 64 + wq * 16 + (lane >> 2), cq = (lane & 3) * 2;
-  if (g.ws != nullptr) {
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int m = m0 + row + 8 * hh, i = 4 * j + 2 * hh;
-        if (m < m_total)
-          *reinterpret_cast<float2*>(&g.ws[((size_t)split * m_total + m) * BN + j * 8 + cq]) =
-              make_float2(sum[i], sum[i + 1]);
-      }
-    return;
-  }
-  float* c = reinterpret_cast<float*>(smem);
-  int* off_px = reinterpret_cast<int*>(c + kBM * (BN + 1));
-  constexpr int ldc = BN + 1;
-#pragma unroll
-  for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int i = 4 * j + 2 * hh;
-      c[(row + 8 * hh) * ldc + j * 8 + cq] = sum[i];
-      c[(row + 8 * hh) * ldc + j * 8 + cq + 1] = sum[i + 1];
-    }
-  __syncthreads();
-  epilogue_tile<float, BN, kBM>(c, off_px, m0, 0, g.epi, tid, kWgThreads);
+  stage_tail<float, BN>(sum, g, smem, m0, 0, split, tid);
 }
 
 // The split-K pass over a 4-pixel x 64-channel tile, one element a thread

@@ -33,10 +33,11 @@ hi and a lo plane, the weights once, when they are packed
 blocks; :func:`scratch_layout` places the activations and the split-K
 partials in one scratch buffer that the wrapper allocates.
 
-The gate: :func:`fused_convblock_enabled` takes every channels-equal
-256-channel block on a CUDA tensor, at every size from 64² down to 4², in
-both dtypes: the JAX gate's 16 MB VMEM budget and its 8×8 floor are limits
-of the TPU and do not carry over. CPU tensors take the plain version.
+The gate: :func:`fused_convblock_enabled` takes every block
+:func:`k3_takes` (channels-equal, 256 channels) on a CUDA tensor, at every
+size from 64² down to 4², in both dtypes: the JAX gate's 16 MB VMEM budget
+and its 8×8 floor are limits of the TPU and do not carry over. CPU tensors
+take the plain version.
 
 * :func:`fused_conv_block_plain` is the plain PyTorch version (fold → ReLU
   → ``F.conv2d`` three times, cat, + x).
@@ -45,13 +46,16 @@ of the TPU and do not carry over. CPU tensors take the plain version.
   an exported graph call, on x and the block's twelve K3Args tensors: the
   plain version on a CPU tensor, the kernel on a CUDA tensor, shapes alone
   under fake tensors.
-* :func:`fused_conv_block_cuda` launches the kernel and counts its launches
-  in ``fused_conv_block_cuda.launches`` (one a block; the kernel runs as a
+* :func:`fused_conv_block_cuda` checks its arguments and launches the
+  kernel on every call, and counts its launches in
+  ``fused_conv_block_cuda.launches`` (one a block; the kernel runs as a
   prologue and three stage launches, each split stage with its reduce
-  pass), and in ``fused_conv_block_cuda.cache_misses`` the launches it
-  checked and planned anew (not from its launch cache).
-* :func:`block_args` counts in ``fused_conv_block.args_built`` each time
-  it makes a ConvBlock's folds and packed weights anew.
+  pass). What a launch needs besides its tensors is a :class:`K3Plan`, made
+  once per input shape by :func:`plan_for` and counted in
+  ``fused_conv_block_cuda.plan_misses``.
+* :func:`conv_block_args` makes a ConvBlock's K3Args; :func:`block_args`
+  keeps them beside the block and counts in ``fused_conv_block.args_built``
+  each time it makes them anew.
 * The operator's autograd formula (:func:`fused_conv_block_bwd`)
   recomputes the plain version from the saved inputs and differentiates
   it, as the JAX package's custom VJP (``fused_conv_block_256``'s ``_bwd``:
@@ -90,11 +94,16 @@ class K3Args(NamedTuple):
     wk: Tensors3
 
 
+def k3_takes(p) -> bool:
+    """Whether K3 takes ConvBlock ``p``: no downsample, 256 channels in and
+    out."""
+    return p.downsample is None and p.bn1.num_features == CHANNELS
+
+
 def fused_convblock_enabled(p, x: torch.Tensor) -> bool:
-    """Whether ConvBlock ``p`` takes the kernel for ``x``: a channels-equal
-    256-channel block (no downsample) on an NCHW CUDA tensor."""
-    return (x.is_cuda and getattr(p, "downsample", None) is None and x.dim() == 4
-            and x.shape[1] == CHANNELS)
+    """Whether ConvBlock ``p`` takes the kernel for ``x``: a block
+    :func:`k3_takes`, on a 4-D CUDA tensor."""
+    return x.is_cuda and x.dim() == 4 and k3_takes(p)
 
 
 def tf32_split(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -203,24 +212,29 @@ def make_k3_args(inv, off, w, dtype: torch.dtype) -> K3Args:
                   w, tuple(kernel_weight(t) for t in w))
 
 
+def conv_block_args(p, dtype: torch.dtype) -> K3Args:
+    """ConvBlock ``p``'s K3Args in ``dtype``: its three batch norms folded
+    (:func:`..models.nn.fold_bn`) and its three weights."""
+    from ..models.nn import fold_bn
+    folds = [fold_bn(bn, dtype) for bn in (p.bn1, p.bn2, p.bn3)]
+    return make_k3_args([f[0] for f in folds], [f[1] for f in folds],
+                        [p.conv1.weight, p.conv2.weight, p.conv3.weight], dtype)
+
+
 _cache: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
 def block_args(p, dtype: torch.dtype) -> K3Args:
-    """ConvBlock ``p``'s K3Args in ``dtype``. They are kept beside ``p`` and
-    rebuilt when a weight or statistic changes (its storage or version),
-    unless a gradient is to reach the parameters (grad on and a parameter
-    that requires it): then they are built anew each call. A frozen FAN
-    (training's) keeps its args with grad on too, so its served calls hit
-    the launch cache."""
-    from ..models.nn import fold_bn
+    """ConvBlock ``p``'s K3Args in ``dtype`` (:func:`conv_block_args`). They
+    are kept beside ``p`` and rebuilt when a weight or statistic changes
+    (its storage or version), unless a gradient is to reach the parameters
+    (grad on and a parameter that requires it): then they are built anew
+    each call. A frozen FAN (training's) keeps its args with grad on too."""
     tensors = list(p.parameters()) + list(p.buffers())
 
     def build():
         fused_conv_block.args_built += 1
-        folds = [fold_bn(bn, dtype) for bn in (p.bn1, p.bn2, p.bn3)]
-        return make_k3_args([f[0] for f in folds], [f[1] for f in folds],
-                            [p.conv1.weight, p.conv2.weight, p.conv3.weight], dtype)
+        return conv_block_args(p, dtype)
 
     if (torch.is_grad_enabled() and any(t.requires_grad for t in tensors)) or any(
             t.is_inference() for t in tensors):
@@ -281,73 +295,56 @@ def scratch_layout(batch: int, h: int, w: int, dtype: torch.dtype) -> Tuple[int,
     return act_b, ws, ws + 4 * schedule(batch, h, w, dtype).workspace
 
 
-class _Launch(NamedTuple):
-    """A checked K3 launch for one (input shape, dtype, device, folds and
-    packed weights): the C entry point, the weight and fold pointers, the
-    scratch layout and the schedule's K steps a block."""
+class K3Plan(NamedTuple):
+    """What a K3 launch needs besides its tensors, made once per (input
+    shape, dtype, device): the C entry point, the scratch layout
+    (:func:`scratch_layout`) and the schedule's K steps a block."""
     fn: object
-    ptrs: Tuple[int, ...]
     layout: Tuple[int, int, int]
     kchunk: Tuple[int, int, int]
 
 
-_launches: dict = {}
+_plans: Dict[tuple, K3Plan] = {}
 
 
-def _launch_key(x: torch.Tensor, args: K3Args) -> tuple:
-    """A checked launch's key: x's shape, dtype and device, and the folds'
-    and packed weights' pointers. Each of those tensors has one shape,
-    dtype and layout for its stage (:func:`_check`), so a pointer that
-    passed with this x passes again."""
-    return (x.shape, x.dtype, x.device) + tuple(t.data_ptr() for t in args.inv + args.off
-                                                 + args.wk)
+def plan_for(x: torch.Tensor) -> K3Plan:
+    """The cached plan for input ``x`` (made on its first call, counted in
+    ``fused_conv_block_cuda.plan_misses``)."""
+    key = (x.shape, x.dtype, x.device)
+    plan = _plans.get(key)
+    if plan is None:
+        b, _, h, w = x.shape
+        plan = _plans[key] = K3Plan(getattr(load_library(), _ENTRY[x.dtype]),
+                                    scratch_layout(b, h, w, x.dtype),
+                                    schedule(b, h, w, x.dtype).kchunk)
+        fused_conv_block_cuda.plan_misses += 1
+    return plan
 
 
-def _launch_for(x: torch.Tensor, args: K3Args, keep: bool) -> _Launch:
-    key = _launch_key(x, args)
-    hit = _launches.get(key)
-    if hit is not None:
-        return hit
-    _check(x, args)
-    fused_conv_block_cuda.cache_misses += 1
-    b, _, h, w = x.shape
-    ptrs = []
-    for k in range(3):
-        ptrs += [args.inv[k].data_ptr(), args.off[k].data_ptr(), args.wk[k].data_ptr()]
-    hit = _Launch(getattr(load_library(), _ENTRY[x.dtype]), tuple(ptrs),
-                  scratch_layout(b, h, w, x.dtype), schedule(b, h, w, x.dtype).kchunk)
-    if keep:
-        if len(_launches) >= 1024:     # folds of blocks whose weights changed
-            _launches.clear()
-        _launches[key] = hit
-    return hit
-
-
-def fused_conv_block_cuda(x: torch.Tensor, args: K3Args, keep: bool = True) -> torch.Tensor:
+def fused_conv_block_cuda(x: torch.Tensor, args: K3Args) -> torch.Tensor:
     """Launch K3 on a contiguous (B, 256, H, W) CUDA tensor (f32 or bf16).
-    The checks of ``args`` run on the first call of a shape and set of
-    pointers; a call then allocates the output and the scratch and makes
-    one C call. ``keep`` False checks the args anew and keeps no entry for
-    them: args built for one autograd call."""
-    if not x.is_contiguous():
-        raise ValueError("fused_conv_block_cuda takes a contiguous NCHW tensor")
-    run = _launch_for(x, args, keep)
+    A call checks ``args`` against ``x``, takes the plan of x's shape
+    (:func:`plan_for`), allocates the output and the scratch and makes one
+    C call."""
+    _check(x, args)
+    plan = plan_for(x)
     b, _, h, w = x.shape
     out = torch.empty_like(x)
-    act_b, ws, total = run.layout
+    act_b, ws, total = plan.layout
     scratch = torch.empty(total, dtype=torch.uint8, device=x.device)
     base = scratch.data_ptr()
+    ptrs = [t.data_ptr() for k in range(3) for t in (args.inv[k], args.off[k], args.wk[k])]
     with on_card_of(x):
-        status = run.fn(x.data_ptr(), *run.ptrs, out.data_ptr(), base, base + act_b,
-                        base + ws, b, h, w, *run.kchunk,
-                        torch._C._cuda_getCurrentRawStream(x.device.index))
+        status = plan.fn(x.data_ptr(), *ptrs, out.data_ptr(), base, base + act_b, base + ws,
+                         b, h, w, *plan.kchunk,
+                         torch._C._cuda_getCurrentRawStream(x.device.index))
     check(status, "fused_conv_block_cuda")
     fused_conv_block_cuda.launches += 1
     return out
 
 
 fused_conv_block_cuda.launches = 0
-fused_conv_block_cuda.cache_misses = 0
+fused_conv_block_cuda.plan_misses = 0
 
 
 def fused_conv_block_bwd(grad: torch.Tensor, x: torch.Tensor, args: K3Args,
@@ -382,9 +379,7 @@ def _plain_op(x, *tensors):
 
 
 def _cuda_op(x, *tensors):
-    # args that need a gradient are built anew each call: check, keep nothing
-    keep = not (x.requires_grad or any(t.requires_grad for t in tensors))
-    return fused_conv_block_cuda(x, _args_of(tensors), keep=keep)
+    return fused_conv_block_cuda(x, _args_of(tensors))
 
 
 def _fake_op(x, *tensors):

@@ -42,9 +42,8 @@ from ..models.deca.deca import DECA, calculate_shapemodel
 from ..models.direction_matrix import DirectionMatrix, direction_matrix_forward
 from ..models.face.cropping import landmarks_in_crop
 from ..models.face.fan import FAN, ConvBlock
-from ..models.nn import fold_bn
 from ..models.face.s3fd import S3FD
-from ..ops.fused_conv_block import CHANNELS, K3Args, kernel_weight, program_args
+from ..ops.fused_conv_block import K3Args, conv_block_args, k3_takes, program_args
 from ..parallel.mesh import Mesh, _to, data_parallel
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.profiling import span
@@ -217,6 +216,26 @@ def _over_mesh(body, mesh: Optional[Mesh], nets, n_batch: int):
                          replicated=[m for m in nets if isinstance(m, torch.nn.Module)])
 
 
+def _entry_call(dev: torch.device, run):
+    """Both entries' call: ``call(lead, source_code, params_source,
+    angles_source)`` runs ``run(*lead(to_dev), <the source's three>)``, all
+    put on ``dev`` in ``reenact.inputs`` (``to_dev``: float32 by default),
+    under ``torch.inference_mode()`` and the entry's ``reenact.call``."""
+    calls = itertools.count()
+
+    def to_dev(x, dtype=torch.float32):
+        return torch.as_tensor(x, dtype=dtype, device=dev)
+
+    def call(lead, source_code, params_source, angles_source):
+        with torch.inference_mode(), span("reenact.call", call=next(calls)):
+            with span("reenact.inputs"):
+                args = (*lead(to_dev), to_dev(source_code),
+                        {k: to_dev(v) for k, v in params_source.items()}, to_dev(angles_source))
+            return run(*args)
+
+    return call
+
+
 def make_fused_reenact_fn(g: AnyGenerator, a: DirectionMatrix, deca: DECA,
                           spec: DirectionsSpec, sfd_prep: S3FD, fan_prep: FAN, *,
                           crop_size: int = 256,
@@ -249,19 +268,11 @@ def make_fused_reenact_fn(g: AnyGenerator, a: DirectionMatrix, deca: DECA,
             fan_params=fan_params, s3fd_params=s3fd_params, reuse_landmarks=reuse_landmarks,
             output_u8=output_u8, outputs=outputs)
 
-    run = _over_mesh(body, mesh, nets, 1)
-    calls = itertools.count()
-
-    def to_dev(x):
-        return torch.as_tensor(x, dtype=torch.float32, device=dev)
+    call = _entry_call(dev, _over_mesh(body, mesh, nets, 1))
 
     def fn(source_code, params_source, angles_source, raw_frames):
-        with torch.inference_mode(), span("reenact.call", call=next(calls)):
-            with span("reenact.inputs"):
-                args = (torch.as_tensor(raw_frames, device=dev), *nets, trunc,
-                        to_dev(source_code), {k: to_dev(v) for k, v in params_source.items()},
-                        to_dev(angles_source))
-            return run(*args)
+        return call(lambda to_dev: (torch.as_tensor(raw_frames, device=dev), *nets, trunc),
+                    source_code, params_source, angles_source)
 
     return fn
 
@@ -271,8 +282,7 @@ def k3_blocks(fan: Optional[FAN]) -> List[ConvBlock]:
     blocks K3 takes (14 a module)."""
     if fan is None:
         return []
-    return [m for m in fan.modules() if isinstance(m, ConvBlock) and m.downsample is None
-            and m.bn1.num_features == CHANNELS]
+    return [m for m in fan.modules() if isinstance(m, ConvBlock) and k3_takes(m)]
 
 
 def module_state(m: Optional[torch.nn.Module]) -> Optional[Dict[str, torch.Tensor]]:
@@ -286,9 +296,9 @@ def module_state(m: Optional[torch.nn.Module]) -> Optional[Dict[str, torch.Tenso
 class ReenactProgram(torch.nn.Module):
     """The modules of one reenactment program and the constants made for it
     once: the truncation latent and, for each of FAN's K3 blocks
-    (:func:`k3_blocks`), its three folds' scales and offsets and its packed
-    weights in the alignment dtype (``k3.b{i}_{inv,off,wk}{1,2,3}``; the
-    OIHW weights too, ``w``, where that dtype is not float32). Its forward
+    (:func:`k3_blocks`), its K3Args in the alignment dtype
+    (``ops/fused_conv_block.py::conv_block_args``: ``k3.b{i}_{inv,off,wk}{1,2,3}``;
+    the OIHW weights too, ``w``, where that dtype is not float32). Its forward
     is :func:`reenact_batch` with FAN's blocks taken through K3 with those
     constants (``ops/fused_conv_block.py::program_args``) on every device."""
 
@@ -305,18 +315,14 @@ class ReenactProgram(torch.nn.Module):
         self.return_target_params, self.reuse_landmarks = return_target_params, reuse_landmarks
         self.k3 = torch.nn.Module()
         self._blocks = [] if reuse_landmarks else k3_blocks(fan)
-        dtype = torch.float32 if compute_dtype == torch.float32 else compute_dtype
-        self._own_w = dtype != torch.float32
+        self._own_w = compute_dtype != torch.float32
+        names = ("inv", "off", "wk") + (("w",) if self._own_w else ())
         with torch.no_grad():
             for i, blk in enumerate(self._blocks):
-                for j, bn in enumerate((blk.bn1, blk.bn2, blk.bn3), 1):
-                    inv, off = fold_bn(bn, dtype)
-                    w = getattr(blk, f"conv{j}").weight.to(dtype)
-                    self.k3.register_buffer(f"b{i}_inv{j}", inv)
-                    self.k3.register_buffer(f"b{i}_off{j}", off)
-                    self.k3.register_buffer(f"b{i}_wk{j}", kernel_weight(w))
-                    if self._own_w:
-                        self.k3.register_buffer(f"b{i}_w{j}", w.clone())
+                args = conv_block_args(blk, compute_dtype)
+                for j in range(3):
+                    for name in names:
+                        self.k3.register_buffer(f"b{i}_{name}{j + 1}", getattr(args, name)[j])
 
     def block_args(self) -> Dict[ConvBlock, K3Args]:
         """Each K3 block's K3Args from this program's (possibly swapped)
@@ -447,25 +453,17 @@ def make_reenact_fn(g: AnyGenerator, a: DirectionMatrix, deca: DECA,
         return program(copies[target_imgs.device], source_code, params_source,
                        angles_source, target_imgs, *extra)
 
-    run = _over_mesh(body, mesh, (), 3)
-    calls = itertools.count()
-
-    def to_dev(x, dtype=torch.float32):
-        return torch.as_tensor(x, dtype=dtype, device=dev)
+    call = _entry_call(dev, _over_mesh(body, mesh, (), 3))
 
     def fn(source_code, params_source, angles_source, target_imgs, *extra):
         if len(extra) != (2 if reuse_landmarks else 0):
             raise TypeError("the reenactor takes target_lms and target_ok after "
                             "target_imgs with reuse_landmarks, and nothing else")
-        with torch.inference_mode(), span("reenact.call", call=next(calls)):
-            with span("reenact.inputs"):
-                lms = ok = None
-                if reuse_landmarks:
-                    lms, ok = to_dev(extra[0]), to_dev(extra[1], torch.bool)
-                args = (to_dev(target_imgs), lms, ok, to_dev(source_code),
-                        {k: to_dev(v) for k, v in params_source.items()},
-                        to_dev(angles_source))
-            return run(*args)
+
+        def lead(to_dev):
+            lms, ok = (to_dev(extra[0]), to_dev(extra[1], torch.bool)) if extra else (None, None)
+            return to_dev(target_imgs), lms, ok
+        return call(lead, source_code, params_source, angles_source)
 
     return fn
 

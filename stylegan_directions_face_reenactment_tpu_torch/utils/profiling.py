@@ -59,12 +59,12 @@ def counters() -> Dict[str, int]:
     """Every counter the port's kernels keep, by ``<function>.<counter>``:
     each operator's launches (``fused_conv_block_cuda.launches`` and the
     rest), K3's argument builds (``fused_conv_block.args_built``: a
-    ConvBlock's folds and packed weights made anew), K3's launch-cache
-    misses (``fused_conv_block_cuda.cache_misses``: a launch checked and
-    planned anew) and K4's (``filtered_lrelu_cuda.plan_misses``: a launch
-    plan made anew; ``filtered_lrelu_cuda.prefetched_planes``: planes whose
-    input a block had in flight before it needed them). They count from the
-    process's start."""
+    ConvBlock's folds and packed weights made anew), the launch plans K3 and
+    K4 made anew (``fused_conv_block_cuda.plan_misses``,
+    ``filtered_lrelu_cuda.plan_misses``) and K4's
+    ``filtered_lrelu_cuda.prefetched_planes`` (planes whose input a block
+    had in flight before it needed them). They count from the process's
+    start."""
     from ..ops import filtered_lrelu, fused_act, fused_conv_block, upfirdn2d_kernel
     fns = (upfirdn2d_kernel.upfirdn2d_cuda, upfirdn2d_kernel.upfirdn2d_bwd_cuda,
            fused_act.fused_bias_act_cuda, fused_act.fused_bias_act_bwd_cuda,

@@ -1,6 +1,6 @@
 """K3's partition of the work, on the CPU: what surrounds the CUDA kernel
 of ``ops/fused_conv_block.py`` (the schedule table, the weight packing,
-the scratch layout), and a torch emulation of the kernel's arithmetic held
+the scratch layout, the cached launch plan), and a torch emulation of the kernel's arithmetic held
 against the plain version and the JAX package's block.
 
 The emulation follows ``csrc/fused_conv_block.cu``: the first stage's
@@ -23,6 +23,8 @@ bf16 bound (``tests/test_torch_fan.py``): JAX rounds its batch norm to bf16
 in other places than the fold does.
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -41,6 +43,8 @@ from stylegan_directions_face_reenactment_tpu_torch.ops.main_path import (
 
 from torch_face_zoo import randomize_bn, to_np
 from torch_threads import _threads  # noqa: F401
+
+CARD = torch.device("cuda", 0)
 
 
 @pytest.fixture(scope="module")
@@ -186,6 +190,35 @@ def test_scratch_layout():
         assert act_b % 256 == 0 and ws % 256 == 0
         assert act_b >= m * 256 * es and ws - act_b >= m * 128 * es
         assert total - ws == 4 * k3.schedule(b, h, w, dtype).workspace
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_launch_plan_is_made_once_per_shape(monkeypatch, dtype):
+    """``plan_for`` makes K3's plan (entry point, scratch layout, K steps a
+    block) on the first call of an input shape, dtype and device and hands
+    it back after; another shape or dtype makes another, and
+    ``fused_conv_block_cuda.plan_misses`` counts what was made. Plans are
+    made for a CUDA device without a card: a plan reads only the input's
+    shape, dtype and device."""
+    lib = SimpleNamespace(fused_conv_block_f32=object(), fused_conv_block_bf16=object())
+    monkeypatch.setattr(k3, "load_library", lambda: lib)
+    monkeypatch.setattr(k3, "_plans", {})
+    monkeypatch.setattr(k3.fused_conv_block_cuda, "plan_misses", 0)
+    other = torch.bfloat16 if dtype == torch.float32 else torch.float32
+
+    def fake(shape, dt=dtype):
+        return SimpleNamespace(shape=torch.Size(shape), dtype=dt, device=CARD)
+    a = k3.plan_for(fake((16, 256, 64, 64)))
+    assert a.fn is getattr(lib, k3._ENTRY[dtype])
+    assert a.layout == k3.scratch_layout(16, 64, 64, dtype)
+    assert a.kchunk == k3.schedule(16, 64, 64, dtype).kchunk
+    assert k3.plan_for(fake((16, 256, 64, 64))) is a
+    assert k3.fused_conv_block_cuda.plan_misses == 1
+    b = k3.plan_for(fake((16, 256, 4, 4)))
+    assert b is not a and b.kchunk == k3.schedule(16, 4, 4, dtype).kchunk
+    assert k3.plan_for(fake((16, 256, 64, 64), other)) is not a
+    assert k3.plan_for(fake((16, 256, 4, 4))) is b
+    assert k3.fused_conv_block_cuda.plan_misses == 3 and len(k3._plans) == 3
 
 
 def test_f32_packing_is_a_tf32_hi_lo_pair():

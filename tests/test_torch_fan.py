@@ -208,7 +208,8 @@ def test_block_args_follow_weight_changes():
 def test_block_args_kept_for_a_frozen_block_with_grad_on():
     """With grad on, a block whose parameters require a gradient gets fresh
     args each call (so the gradient reaches them); a frozen block (the
-    trainer's FAN) keeps its args, so its K3 calls hit the launch cache."""
+    trainer's FAN) keeps its args, so its K3 calls fold and pack nothing
+    anew."""
     p = ConvBlock(256, 256)
     assert k3.block_args(p, torch.float32) is not k3.block_args(p, torch.float32)
     p.requires_grad_(False)
@@ -216,6 +217,29 @@ def test_block_args_kept_for_a_frozen_block_with_grad_on():
     assert k3.block_args(p, torch.float32) is a
     with torch.no_grad():
         assert k3.block_args(p, torch.float32) is a
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_program_k3_args_are_block_args(dtype):
+    """A reenactment program's K3 constants (``ReenactProgram.block_args``)
+    are, tensor for tensor, the K3Args ``block_args`` makes for each block of
+    a seeded 4-module FAN, and its blocks are exactly those ``k3_takes``."""
+    from stylegan_directions_face_reenactment_tpu_torch.pipeline.reenactment import (
+        ReenactProgram)
+    from stylegan_directions_face_reenactment_tpu_torch.weights import init_fan
+    fan = randomize_bn(init_fan(6, 4, device="cpu"), 7)
+    prog = ReenactProgram(None, None, None, None, fan, None, None, truncation=0.7,
+                          num_layers_shift=8, compute_dtype=dtype,
+                          return_target_params=False, reuse_landmarks=False)
+    got = prog.block_args()
+    assert list(got) == [m for m in fan.modules()
+                         if isinstance(m, ConvBlock) and k3.k3_takes(m)]
+    assert len(got) == 56
+    with torch.no_grad():
+        for blk, args in got.items():
+            want = k3.block_args(blk, dtype)
+            for g_group, w_group in zip(args, want):
+                assert all(torch.equal(g, w) for g, w in zip(g_group, w_group))
 
 
 def test_state_dict_keeps_the_reference_key_layout(fans):

@@ -274,13 +274,14 @@ def test_fused_conv_block_refuses_grad(card):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("mode", ["no_grad", "inference_mode"])
+@pytest.mark.parametrize("mode", ["no_grad", "inference_mode", "grad"])
 def test_fused_conv_block_served_args_hit_the_launch_cache(card, monkeypatch, mode, dtype):
     """A FAN ConvBlock whose weights are ``nn.Parameter``s (they need a
-    gradient), served under no-grad or inference mode: its args are checked
-    on the first call of a shape and kept, so the second call checks
-    nothing; a call with grad on (the autograd Function) checks its fresh
-    args each time and keeps none of them."""
+    gradient), called three times under no-grad, under inference mode or
+    with grad on (each call's backward run too): the first call makes the
+    one launch plan of its shape and later calls make none, since a plan is
+    keyed by the input's shape, dtype and device alone; the args are checked
+    on every call; the outputs are bit-equal."""
     from stylegan_directions_face_reenactment_tpu_torch.models.face.fan import (
         ConvBlock, conv_block)
     p = ConvBlock(256, 256).to(card)
@@ -290,17 +291,19 @@ def test_fused_conv_block_served_args_hit_the_launch_cache(card, monkeypatch, mo
     checks = []
     real_check = k3._check
     monkeypatch.setattr(k3, "_check", lambda *a: (checks.append(1), real_check(*a)))
-    guard = torch.no_grad() if mode == "no_grad" else torch.inference_mode()
-    with guard:
-        first = conv_block(p, x)
-        after_first = len(checks)
-        second = conv_block(p, x)
-    assert after_first == 1 and len(checks) == 1
-    assert torch.equal(first, second)
-    kept = len(k3._launches)
-    for _ in range(2):
-        conv_block(p, x.clone().requires_grad_()).sum().backward()
-    assert len(checks) == 3 and len(k3._launches) == kept
+    monkeypatch.setattr(k3, "_plans", {})
+    guard = {"no_grad": torch.no_grad, "inference_mode": torch.inference_mode,
+             "grad": torch.enable_grad}[mode]
+    misses, outs = k3.fused_conv_block_cuda.plan_misses, []
+    with guard():
+        for _ in range(3):
+            out = conv_block(p, x.clone().requires_grad_() if mode == "grad" else x)
+            if mode == "grad":
+                out.sum().backward()
+            outs.append(out.detach())
+            assert k3.fused_conv_block_cuda.plan_misses == misses + 1
+    assert len(k3._plans) == 1 and len(checks) == 3
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -444,9 +447,10 @@ def test_pti_step_gradients_match_plain_path(card):
 
 def test_train_step_serves_k3_from_its_launch_cache(card, monkeypatch):
     """One grads-only synthetic train step (64² generator, a 4-module FAN on
-    the frame, batch 2) on the card: the frozen FAN's K3 calls check their
-    args in the first step only, later steps hit the launch cache, and no
-    K3-bwd runs (FAN's input and the landmarks are detached)."""
+    the frame, batch 2) on the card: the frozen FAN's K3 calls make their
+    launch plans in the first step only, a later step makes none and checks
+    the args of each of its calls, and no K3-bwd runs (FAN's input and the
+    landmarks are detached)."""
     from stylegan_directions_face_reenactment_tpu_torch.configs import TrainingArguments
     from stylegan_directions_face_reenactment_tpu_torch.geometry import initialize_directions
     from stylegan_directions_face_reenactment_tpu_torch.models import mean_latent
@@ -467,12 +471,16 @@ def test_train_step_serves_k3_from_its_launch_cache(card, monkeypatch):
     checks = []
     real_check = k3._check
     monkeypatch.setattr(k3, "_check", lambda *x: (checks.append(1), real_check(*x))[1])
+    monkeypatch.setattr(k3, "_plans", {})
+    misses = k3.fused_conv_block_cuda.plan_misses
     step(a, gen)
-    first = len(checks)
+    first = k3.fused_conv_block_cuda.plan_misses - misses
     launches, bwd = k3.fused_conv_block_cuda.launches, k3.fused_conv_block_bwd.launches
+    checked = len(checks)
     terms, grads = step(a, gen)
-    assert first > 0 and len(checks) == first
+    assert first > 0 and k3.fused_conv_block_cuda.plan_misses - misses == first
     assert k3.fused_conv_block_cuda.launches - launches == 3 * 56
+    assert len(checks) - checked == 3 * 56
     assert k3.fused_conv_block_bwd.launches == bwd
     assert torch.isfinite(grads["weight"]).all() and torch.isfinite(terms["loss"])
 

@@ -172,11 +172,10 @@ def test_counters_and_k3_argument_builds(monkeypatch, inference_weights):
     CPU as the gate sends them on the card."""
     keys = profiling.counters()
     assert set(LAUNCH_COUNTERS) | {"fused_conv_block.args_built",
-                                   "fused_conv_block_cuda.cache_misses",
+                                   "fused_conv_block_cuda.plan_misses",
                                    "filtered_lrelu_cuda.plan_misses",
                                    "filtered_lrelu_cuda.prefetched_planes"} == set(keys)
-    monkeypatch.setattr(fan_mod, "fused_convblock_enabled",
-                        lambda p, x: p.downsample is None and x.shape[1] == k3.CHANNELS)
+    monkeypatch.setattr(fan_mod, "fused_convblock_enabled", lambda p, x: k3.k3_takes(p))
     with torch.inference_mode(inference_weights):
         fan = init_fan(6, 1, device="cpu")
     x = torch.rand(1, 256, 256, 3)

@@ -35,7 +35,7 @@ def with_chunks(table, chunks):
 
 
 def time_call(x, args):
-    k3._launches.clear()          # the cached launch holds the schedule's chunks
+    k3._plans.clear()             # a cached plan holds the schedule's chunks
     return 1e3 * c.device_ms(lambda: k3.fused_conv_block_cuda(x, args), reps=20)
 
 
@@ -72,7 +72,7 @@ def main():
                     print("[tune] " + " | ".join(line), flush=True)
     finally:
         k3.schedule = table
-        k3._launches.clear()
+        k3._plans.clear()
 
 
 if __name__ == "__main__":
