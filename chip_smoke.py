@@ -138,11 +138,14 @@ non-zero without printing the last line:
     against its plain version at every layer shape of the published
     StyleGAN3-T at a chunk of 16, float32 and bf16 (per-plane scales on
     every other layer), and each instantiation zero-padded to 24 taps at a
-    small shape; its device ms, host µs, call ms, plain ms and bound over a
-    chunk's 15 calls, with each plan's tile and plane walk; its launches
-    (15), plans made (0) and planes prefetched (the sum its plans give) in a
-    second StyleGAN3-T chunk through ``make_reenact_fn``, whose images are
-    held against the plain version's synthesis of the same latents.
+    small shape; on the same values channels-last, bit-equal to itself on
+    NCHW; its device ms, host µs, call ms, plain ms and bound over a chunk's
+    15 calls in both layouts (channels-last at the channel counts the
+    synthesis pads to, NCHW at the published ones), with each plan's tile,
+    group and plane walk; its launches (15, all channels-last), plans made
+    (0) and planes prefetched (the sum its plans give) in a second
+    StyleGAN3-T chunk through ``make_reenact_fn``, whose images are held
+    against the plain version's synthesis of the same latents.
 
 Phases 10-21 run last, so that the readings of 1-8 keep the conditions
 they were first recorded in.
@@ -4157,17 +4160,22 @@ def k4_args(m, idx):
     return m.up_taps, m.down_taps, m.up, m.down, m.padding, 2 ** 0.5, 0.2, 256.0
 
 
-def k4_inputs(m, idx, dtype, gen, batch=K4_BATCH):
+def k4_inputs(m, idx, dtype, gen, batch=K4_BATCH, channels=None):
     """(x, bias, scales) of layer ``m`` at ``batch``: the conv output of the
-    layer (its input size padded by the kernel), three times unit normal so
-    that the clamp bites; per-plane scales on every other layer (the
-    demodulation and the next layer's styles)."""
+    layer (its input size padded by the kernel; ``channels`` of them, the
+    published count unless given, the planes past it zero with a zero bias,
+    as the synthesis pads them), three times unit normal so that the clamp
+    bites; per-plane scales on every other layer (the demodulation and the
+    next layer's styles)."""
     hw = m.in_size + m.conv_kernel - 1
-    x = (3 * torch.randn(batch, m.out_channels, hw, hw, generator=gen, device="cuda")).to(dtype)
-    b = torch.randn(m.out_channels, generator=gen, device="cuda")
+    c = m.out_channels if channels is None else channels
+    x = (3 * torch.randn(batch, c, hw, hw, generator=gen, device="cuda")).to(dtype)
+    b = torch.randn(c, generator=gen, device="cuda")
+    x[:, m.out_channels:] = 0
+    b[m.out_channels:] = 0
     scales = {} if idx % 2 else dict(
-        in_scale=torch.rand(batch, m.out_channels, generator=gen, device="cuda") + 0.5,
-        out_scale=torch.rand(batch, m.out_channels, generator=gen, device="cuda") + 0.5)
+        in_scale=torch.rand(batch, c, generator=gen, device="cuda") + 0.5,
+        out_scale=torch.rand(batch, c, generator=gen, device="cuda") + 0.5)
     return x, b, scales
 
 
@@ -4202,10 +4210,13 @@ def k4_plain_sliced(x, args, b, scales):
 
 def k4_parity():
     """K4 against its plain version at every published layer shape at a
-    chunk of K4_BATCH, float32 and bf16, and each generic instantiation at
-    a small shape; returns the largest float32 error."""
+    chunk of K4_BATCH, float32 and bf16, at the published channel counts
+    and at the padded ones the synthesis runs (the pad planes zero, and
+    zero out), and each generic instantiation at a small shape; K4 on the
+    same values channels-last bit-equal to K4 on NCHW at each; returns the
+    largest float32 error."""
     from stylegan_directions_face_reenactment_tpu_torch.ops.filtered_lrelu import (
-        filtered_lrelu_cuda, filtered_lrelu_plain, instantiated_taps)
+        filtered_lrelu_cuda, filtered_lrelu_plain, instantiated_taps, is_nhwc)
     gen = torch.Generator(device="cuda").manual_seed(5)
     worst = 0.0
 
@@ -4222,15 +4233,26 @@ def k4_parity():
         if dtype == torch.float32:
             worst = max(worst, err)
 
+    def same_in_nhwc(label, x, got, *args, **scales):
+        nhwc = filtered_lrelu_cuda(x.contiguous(memory_format=torch.channels_last), *args,
+                                   **scales)
+        torch.cuda.synchronize()
+        need(is_nhwc(nhwc) and torch.equal(nhwc, got),
+             f"filtered_lrelu {label} on channels-last differs from NCHW")
+
     for dtype in (torch.float32, torch.bfloat16):
         for idx, (name, m) in enumerate(k4_layers()):
-            x, b, scales = k4_inputs(m, idx, dtype, gen)
-            args = k4_args(m, idx)
-            got = filtered_lrelu_cuda(x, args[0], args[1], b, *args[2:], **scales)
-            held(f"{name} {tuple(x.shape)} -> {tuple(got.shape)}", got,
-                 k4_plain_sliced(x, args, b, scales), dtype)
-            del x, got
-            torch.cuda.empty_cache()
+            for channels in sorted({m.out_channels, m.out_padded}):
+                x, b, scales = k4_inputs(m, idx, dtype, gen, channels=channels)
+                args = k4_args(m, idx)
+                got = filtered_lrelu_cuda(x, args[0], args[1], b, *args[2:], **scales)
+                label = f"{name} {tuple(x.shape)} -> {tuple(got.shape)}"
+                held(label, got, k4_plain_sliced(x, args, b, scales), dtype)
+                same_in_nhwc(label, x, got, args[0], args[1], b, *args[2:], **scales)
+                need(not got[:, m.out_channels:].any(),
+                     f"filtered_lrelu {label} {dtype}: a zero pad plane came out nonzero")
+                del x, got
+                torch.cuda.empty_cache()
         for (up, down, ku, kd), planes, hw, pad in K4_GENERIC:
             need(instantiated_taps(up, down, ku, kd) == (24 // up, 24),
                  f"({up}, {down}, {ku}, {kd}) does not take the generic instantiation")
@@ -4242,16 +4264,23 @@ def k4_parity():
                           out_scale=torch.rand(1, planes, generator=gen, device="cuda") + 0.5)
             args = (fu / fu.sum(), fd / fd.sum(), b, up, down, pad, 2 ** 0.5, 0.2, 4.0)
             got = filtered_lrelu_cuda(x, *args, **scales)
-            held(f"generic up {up} down {down} taps {ku}/{kd} {tuple(x.shape)} -> "
-                 f"{tuple(got.shape)}", got, filtered_lrelu_plain(x, *args, **scales), dtype)
+            label = f"generic up {up} down {down} taps {ku}/{kd} {tuple(x.shape)}"
+            held(f"{label} -> {tuple(got.shape)}", got, filtered_lrelu_plain(x, *args, **scales),
+                 dtype)
+            same_in_nhwc(label, x, got, *args, **scales)
+    print("[k4] channels-last: bit-equal to NCHW at every shape above, both dtypes; the pad "
+          "planes zero")
     return worst
 
 
 def k4_timing(card_name):
-    """Sums over the 15 K4 calls of a chunk of K4_BATCH (TF32 off): the
-    kernel's device ms, host µs and call ms (as phase 4's), the plain
-    version's ms (one pass over the chunk, K4_PLAIN_SLICE frames a call,
-    after warm-ups), the bound."""
+    """Sums over the 15 K4 calls of a chunk of K4_BATCH (TF32 off), in each
+    layout: channels-last at the channel counts the synthesis pads to (its
+    path; key ``filtered_lrelu``), and NCHW at the published counts (key
+    ``filtered_lrelu_nchw``): the kernel's device ms, host µs and call ms
+    (as phase 4's), the plain version's ms (one pass over the NCHW chunk,
+    K4_PLAIN_SLICE frames a call, after warm-ups), the bound (of the
+    planes each layout's tensors hold)."""
     from stylegan_directions_face_reenactment_tpu_torch.ops.filtered_lrelu import (
         _taps, filtered_lrelu_cuda, normalize_pad, plan_for)
     bw, flops, _ = card_rates(card_name)
@@ -4259,35 +4288,46 @@ def k4_timing(card_name):
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         tag = str(dtype)[6:]
-        t = {"library_ms": None}
+        sums = {key: {"library_ms": None} for key in ("filtered_lrelu", "filtered_lrelu_nchw")}
         for idx, (name, m) in enumerate(k4_layers()):
-            x, b, scales = k4_inputs(m, idx, dtype, gen)
             fu, fd, up, down, pad, gain, slope, clamp = k4_args(m, idx)
-            ops, nbytes = k4_work(tuple(x.shape), len(fu or (1,)), len(fd or (1,)), up, down,
-                                  pad, x.element_size())
-            bound = 1e3 * max(nbytes / bw, ops / flops)
+            plain = None
+            for key, layout, channels in (
+                    ("filtered_lrelu_nchw", torch.contiguous_format, m.out_channels),
+                    ("filtered_lrelu", torch.channels_last, m.out_padded)):
+                x, b, scales = k4_inputs(m, idx, dtype, gen, channels=channels)
+                if plain is None:
+                    plain = time_ms(lambda: k4_plain_sliced(
+                        x, (fu, fd, up, down, pad, gain, slope, clamp), b, scales), reps=1)
+                    torch.cuda.empty_cache()
+                x = x.contiguous(memory_format=layout)
+                ops, nbytes = k4_work(tuple(x.shape), len(fu or (1,)), len(fd or (1,)), up,
+                                      down, pad, x.element_size())
+                bound = 1e3 * max(nbytes / bw, ops / flops)
 
-            def call():
-                return filtered_lrelu_cuda(x, fu, fd, b, up, down, pad, gain, slope, clamp,
-                                           **scales)
+                def call():
+                    return filtered_lrelu_cuda(x, fu, fd, b, up, down, pad, gain, slope, clamp,
+                                               **scales)
 
-            ms, host, call_ms = three_times(call)
-            plain = time_ms(lambda: k4_plain_sliced(x, (fu, fd, up, down, pad, gain, slope,
-                                                        clamp), b, scales), reps=1)
-            torch.cuda.empty_cache()
-            p = plan_for(x, _taps(fu), _taps(fd), up, down, normalize_pad(pad), gain, slope,
-                         clamp).params
-            print(f"[k4] timing {name} {tuple(x.shape)} {tag} (tile {p.th}, {p.gx * p.gy} "
-                  f"tiles, {p.pz} planes a block, {p.gz} blocks a tile, {p.smem_bytes} B "
-                  f"shared): kernel device {ms:.4f} ms, "
-                  f"host {host:.2f} us, call {call_ms:.4f} ms; plain {plain:.3f} ms; bound "
-                  f"{bound:.4f} ms ({ops / 1e12:.4f} TFLOP, {nbytes / 1e9:.3f} GB); "
-                  f"kernel/bound {ms / bound:.2f}")
-            add(t, ms=ms, host_us=host, call_ms=call_ms, plain_ms=plain, bound_ms=bound,
-                bytes=nbytes, ops=ops)
-            del x
-        out[("filtered_lrelu", tag)] = t
-        print_sums(f"[k4] filtered_lrelu per chunk of {K4_BATCH} frames, {tag}", t, bw)
+                ms, host, call_ms = three_times(call)
+                p = plan_for(x, _taps(fu), _taps(fd), up, down, normalize_pad(pad), gain,
+                             slope, clamp).params
+                print(f"[k4] timing {name} {tuple(x.shape)} {tag} "
+                      f"{'NHWC' if p.nhwc else 'NCHW'} (tile {p.th}, {p.gx * p.gy} tiles, "
+                      f"groups of {p.cg}, {p.pz} planes a block, {p.gz} blocks a tile, "
+                      f"{p.smem_bytes} B shared): kernel device {ms:.4f} ms, host {host:.2f} "
+                      f"us, call {call_ms:.4f} ms; plain {plain:.3f} ms; bound {bound:.4f} ms "
+                      f"({ops / 1e12:.4f} TFLOP, {nbytes / 1e9:.3f} GB); kernel/bound "
+                      f"{ms / bound:.2f}")
+                add(sums[key], ms=ms, host_us=host, call_ms=call_ms, plain_ms=plain,
+                    bound_ms=bound, bytes=nbytes, ops=ops)
+                del x
+                torch.cuda.empty_cache()
+        for key, t in sums.items():
+            out[(key, tag)] = t
+            layout = "NCHW" if key.endswith("nchw") else "channels-last"
+            print_sums(f"[k4] filtered_lrelu per chunk of {K4_BATCH} frames, {layout}, {tag}",
+                       t, bw)
     return out
 
 
@@ -4297,7 +4337,9 @@ def k4_chunk():
     float32: K4's launches and plan misses zeroed before a second chunk and
     read after it (one call a layer, no plan made anew), and its images
     against the same latents synthesized with the plain version in K4's
-    place. Returns the launches."""
+    place (each of the 15 substitutions counted, and the largest difference
+    between K4 and the plain version at any of them printed). Returns the
+    launches."""
     from stylegan_directions_face_reenactment_tpu_torch.geometry import initialize_directions
     from stylegan_directions_face_reenactment_tpu_torch.models import stylegan3 as sg3
     from stylegan_directions_face_reenactment_tpu_torch.models.deca import calculate_shapemodel
@@ -4323,7 +4365,7 @@ def k4_chunk():
     fn(code, params, angles, crops)
     torch.cuda.synchronize()
     k4.filtered_lrelu_cuda.launches = k4.filtered_lrelu_cuda.plan_misses = 0
-    k4.filtered_lrelu_cuda.prefetched_planes = 0
+    k4.filtered_lrelu_cuda.prefetched_planes = k4.filtered_lrelu_cuda.nhwc_launches = 0
     plans, plan_for = [], k4.plan_for
 
     def recorded(*args):
@@ -4337,9 +4379,10 @@ def k4_chunk():
     wall = time.perf_counter() - t0
     launches, misses = k4.filtered_lrelu_cuda.launches, k4.filtered_lrelu_cuda.plan_misses
     prefetched = k4.filtered_lrelu_cuda.prefetched_planes
-    need(launches == 15 and misses == 0,
-         f"a StyleGAN3-T chunk launched K4 {launches} times with {misses} plans made; "
-         "expected 15 and 0")
+    nhwc = k4.filtered_lrelu_cuda.nhwc_launches
+    need(launches == 15 == nhwc and misses == 0,
+         f"a StyleGAN3-T chunk launched K4 {launches} times ({nhwc} channels-last) with "
+         f"{misses} plans made; expected 15 (15) and 0")
     # blocks × (planes walked − 1), from each launch's plan
     want = sum(q.params.gx * q.params.gy * (q.params.planes - q.params.gz) for q in plans)
     need(prefetched == want > 0,
@@ -4347,20 +4390,31 @@ def k4_chunk():
     need(tuple(img.shape) == (K4_BATCH, 256, 256, 3) and bool(torch.isfinite(img).all()),
          f"the StyleGAN3-T chunk's images: {tuple(img.shape)}, finite "
          f"{bool(torch.isfinite(img).all())}")
+    substituted = []
+
     def plain_k4(x, fu, fd, b, up, down, pad, gain, slope, clamp, in_scale=None,
                  out_scale=None):
         scales = {k: v for k, v in (("in_scale", in_scale), ("out_scale", out_scale))
                   if v is not None}
-        return k4_plain_sliced(x, (fu, fd, up, down, pad, gain, slope, clamp), b, scales)
+        out = k4_plain_sliced(x, (fu, fd, up, down, pad, gain, slope, clamp), b, scales)
+        # K4 on the same input, to show the substitution changes something
+        k4_out = k4.filtered_lrelu(x, fu, fd, b, up, down, pad, gain, slope, clamp, **scales)
+        substituted.append(max_err(k4_out, out))
+        return out
 
     # the whole chunk at once: StyleGAN3 normalises the styles over the batch
     with torch.inference_mode(), mock.patch.object(sg3, "filtered_lrelu", plain_k4):
         want = generate_image(g, lat, input_is_latent=True)
+    need(len(substituted) == 15,
+         f"the plain version stood in for K4 {len(substituted)} times in a chunk, not 15")
     err, lim = max_err(img, want), K4_CHUNK_TOL * float(want.abs().max())
     print(f"[k4] a StyleGAN3-T chunk of {K4_BATCH} crops (make_reenact_fn, float32): K4 "
-          f"launches {launches}, plans made {misses}, planes prefetched {prefetched}; "
+          f"launches {launches} ({nhwc} channels-last), plans made {misses}, planes "
+          f"prefetched {prefetched}; "
           f"{wall * 1e3:.1f} ms; images vs the plain "
-          f"version's synthesis of its latents: max abs err {err:.3g} (limit {lim:.3g})")
+          f"version's synthesis of its latents (15 calls in K4's place; K4 vs plain on "
+          f"their inputs at most {max(substituted):.3g}): max abs err {err:.3g} (limit "
+          f"{lim:.3g})")
     need(err <= lim, "the StyleGAN3-T chunk's images disagree with the plain version's")
     del g, a, deca, fn
     torch.cuda.empty_cache()

@@ -1,5 +1,6 @@
 """StyleGAN3 (alias-free) generator, the T configuration, as ``nn.Module``s
-computing in NCHW, with the functional interface of ``models/stylegan2.py``.
+computing on (N, C, H, W) batches kept channels-last, with the functional
+interface of ``models/stylegan2.py``.
 
 Written from the published architecture (Karras et al., "Alias-Free
 Generative Adversarial Networks", NeurIPS 2021; NVlabs/stylegan3
@@ -23,6 +24,15 @@ up_filter,down_filter}``), so a published state dict loads with a plain
   conv(x · s · gain, ŵ) · demod. In :func:`synthesis` K4 applies the
   demodulation to its input and the next layer's s · gain to its output,
   so neither is a pass of its own over the planes.
+* The activations are channels-last (:data:`MEMORY_FORMAT`) from the
+  Fourier input to ToRGB, and so are the normalised conv weights: cuDNN's
+  TF32 convolutions run in that layout and K4 reads and writes it, so no
+  layout transpose stands between a convolution and its K4 call, and the
+  image comes out as a contiguous NHWC tensor. Each layer's channel count
+  but ToRGB's 3 is padded to a multiple of :data:`CHANNEL_MULTIPLE` with
+  channels that stay exactly zero (zero weight rows and columns, zero bias
+  and scales, which K4 filters to zeros): of any other count cuDNN makes a padded copy of its input
+  or output each call.
 * :func:`layer_schedule`: each layer's cutoff, stopband, sampling rate,
   size and channels from the published formula (14 layers and ToRGB at
   1024², ``L0_36_512`` … ``L14_1024_3``).
@@ -51,6 +61,33 @@ import torch.nn.functional as F
 from ..ops import equal_linear, pixel_norm
 from ..ops.filtered_lrelu import filtered_lrelu
 from .stylegan2 import EqualLinear
+
+# the layout of the synthesis' activations and of its conv weights
+MEMORY_FORMAT = torch.channels_last
+# the activations' channel counts are padded with zero channels to a multiple
+# of this, which cuDNN's channels-last float32 convolutions take as they are
+CHANNEL_MULTIPLE = 8
+
+
+def padded_channels(c: int) -> int:
+    """``c`` rounded up to a multiple of :data:`CHANNEL_MULTIPLE`."""
+    return -(-c // CHANNEL_MULTIPLE) * CHANNEL_MULTIPLE
+
+
+def _pad_channels(v: torch.Tensor, c: int) -> torch.Tensor:
+    """``v`` (..., C) with zeros appended along its last axis up to ``c``."""
+    return v if v.shape[-1] == c else F.pad(v, (0, c - v.shape[-1]))
+
+
+def _to_layer_input(x: torch.Tensor, m: "SynthesisLayer", dtype: torch.dtype) -> torch.Tensor:
+    """A layer's unpadded input (B, in_channels, H, W), already scaled, as
+    the layer takes it: ``dtype``, its zero channels appended, in
+    :data:`MEMORY_FORMAT`."""
+    x = x.to(dtype)
+    if m.in_padded > x.shape[1]:
+        x = F.pad(x, (0, 0, 0, 0, 0, m.in_padded - x.shape[1]))
+    return x.contiguous(memory_format=MEMORY_FORMAT)
+
 
 def layer_schedule(resolution: int = 1024, channel_base: int = 32768,
                    channel_max: int = 512, num_layers: int = 14, num_critical: int = 2,
@@ -122,7 +159,9 @@ class SynthesisLayer(nn.Module):
     """One layer: ``affine`` (styles, bias 1), ``weight`` (out, in, k, k),
     ``bias``, ``magnitude_ema`` (the mean input square), and the K4 filters
     of its up/down sampling (``up_filter``/``down_filter`` buffers as NVlabs
-    registers them; the layer computes with the same taps as floats)."""
+    registers them; the layer computes with the same taps as floats).
+    ``in_padded`` / ``out_padded``: the channel counts of its input and
+    output activations with their zero channels (ToRGB's output unpadded)."""
 
     def __init__(self, w_dim: int, is_torgb: bool, in_channels: int, out_channels: int,
                  in_size: int, out_size: int, in_rate: int, out_rate: int, in_cutoff: float,
@@ -132,6 +171,8 @@ class SynthesisLayer(nn.Module):
         super().__init__()
         self.is_torgb = is_torgb
         self.in_channels, self.out_channels = in_channels, out_channels
+        self.in_padded = padded_channels(in_channels)
+        self.out_padded = out_channels if is_torgb else padded_channels(out_channels)
         self.in_size, self.out_size = in_size, out_size
         self.in_rate, self.out_rate = in_rate, out_rate
         self.conv_kernel = 1 if is_torgb else conv_kernel
@@ -243,8 +284,10 @@ def fourier_features(m: SynthesisInput, w: torch.Tensor) -> torch.Tensor:
 
 class Modulation(NamedTuple):
     """What a layer's styles make of its conv: the input's scale a plane,
-    s · gain (B, in); the demodulation (B, out), None on ToRGB; the conv
-    weight, pre-normalised per output channel (ToRGB: as it is)."""
+    s · gain (B, in_padded); the demodulation (B, out_padded), None on
+    ToRGB; the conv weight (out_padded, in_padded, k, k), pre-normalised
+    per output channel (ToRGB: as it is), in :data:`MEMORY_FORMAT`; zero in
+    every pad channel."""
     in_scale: torch.Tensor
     demod: Optional[torch.Tensor]
     weight: torch.Tensor
@@ -255,18 +298,27 @@ def modulation(m: SynthesisLayer, w: torch.Tensor) -> Modulation:
     conv(x · s · gain, ŵ) · demod: ŵ the weight pre-normalised per output
     channel, s the styles pre-normalised over the batch, gain
     ``magnitude_ema.rsqrt()`` (ToRGB: no normalisation, no demod, styles
-    times 1/sqrt(in))."""
+    times 1/sqrt(in)). The weight is made in :data:`MEMORY_FORMAT` with its
+    pad channels, so that the convolution takes it as it is."""
     styles = equal_linear(w.float(), m.affine.weight, m.affine.bias)       # (B, in)
     weight = m.weight.float()
     gain = m.magnitude_ema.float().rsqrt()
+    k = m.conv_kernel
+    padded = torch.empty((m.out_padded, m.in_padded, k, k), device=weight.device,
+                         memory_format=MEMORY_FORMAT)
+    if padded.shape != weight.shape:
+        padded.zero_()
     if m.is_torgb:
-        styles = styles * (1.0 / math.sqrt(m.in_channels * m.conv_kernel ** 2))
-        return Modulation(styles * gain, None, weight)
-    weight = weight * weight.square().mean(dim=(1, 2, 3), keepdim=True).rsqrt()
+        styles = styles * (1.0 / math.sqrt(m.in_channels * k ** 2))
+        padded[:, :m.in_channels] = weight
+        return Modulation(_pad_channels(styles * gain, m.in_padded), None, padded)
+    weight = torch.mul(weight, weight.square().mean(dim=(1, 2, 3), keepdim=True).rsqrt(),
+                       out=padded[:m.out_channels, :m.in_channels])
     styles = styles * styles.square().mean().rsqrt()
     w2 = weight.square().sum(dim=(2, 3)).t()                                 # (in, out)
     demod = (styles.square() @ w2 + 1e-8).rsqrt()                           # (B, out)
-    return Modulation(styles * gain, demod, weight)
+    return Modulation(_pad_channels(styles * gain, m.in_padded),
+                      _pad_channels(demod, m.out_padded), padded)
 
 
 def layer_forward(m: SynthesisLayer, xs: torch.Tensor, mod: Modulation,
@@ -276,25 +328,28 @@ def layer_forward(m: SynthesisLayer, xs: torch.Tensor, mod: Modulation,
     scaled by ``mod.in_scale``, then K4 with the demodulation as its input
     scale and ``out_scale`` (the next layer's ``in_scale``) as its output
     scale; ToRGB's linear K4 call takes ``output_scale`` into its gain and
-    clamp."""
+    clamp. ``xs`` has the layer's ``in_padded`` channels; the output its
+    ``out_padded``, in xs's layout (channels-last in :func:`synthesis`)."""
     out = F.conv2d(xs, mod.weight.to(xs.dtype), padding=m.conv_kernel - 1)
     if m.is_torgb:
         gain, slope = output_scale, 1.0
         clamp = None if m.conv_clamp is None else m.conv_clamp * output_scale
     else:
         gain, slope, clamp = math.sqrt(2.0), 0.2, m.conv_clamp
-    return filtered_lrelu(out, m.up_taps, m.down_taps, m.bias, m.up, m.down, m.padding,
+    return filtered_lrelu(out, m.up_taps, m.down_taps, _pad_channels(m.bias, m.out_padded),
+                          m.up, m.down, m.padding,
                           gain=gain, slope=slope, clamp=clamp, in_scale=mod.demod,
                           out_scale=out_scale)
 
 
 def synthesis_layer(m: SynthesisLayer, x: torch.Tensor, w: torch.Tensor,
                     output_scale: float = 1.0) -> torch.Tensor:
-    """One layer on its unscaled input ``x``: modulated conv → filtered leaky
-    ReLU (K4)."""
+    """One layer on its unscaled input ``x`` (B, in_channels, H, W):
+    modulated conv → filtered leaky ReLU (K4); (B, out_channels, H', W')
+    without the pad channels."""
     mod = modulation(m, w)
-    return layer_forward(m, x * mod.in_scale[:, :, None, None].to(x.dtype), mod,
-                         output_scale=output_scale)
+    xs = _to_layer_input(x * mod.in_scale[:, :m.in_channels, None, None].to(x.dtype), m, x.dtype)
+    return layer_forward(m, xs, mod, output_scale=output_scale)[:, :m.out_channels]
 
 
 def mapping(g: Generator, z: torch.Tensor) -> torch.Tensor:
@@ -314,8 +369,9 @@ def mean_latent(g: Generator, rng: torch.Generator, n_latent: int = 4096) -> tor
 
 def synthesis(g: Generator, latent: torch.Tensor, noise=None,
               compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """W+ latent (B, n_latent, 512) → NHWC float32 image. ``noise`` is
-    taken for the interface and must be None: StyleGAN3 has no noise."""
+    """W+ latent (B, n_latent, 512) → NHWC float32 image (contiguous: the
+    activations are channels-last throughout). ``noise`` is taken for the
+    interface and must be None: StyleGAN3 has no noise."""
     from ..utils.profiling import span      # utils imports the pipeline, which imports this
     if noise is not None:
         raise ValueError("StyleGAN3 has no noise inputs")
@@ -325,8 +381,9 @@ def synthesis(g: Generator, latent: torch.Tensor, noise=None,
     with span("sg3.layer", index=-1, rate=sch[0]["rate"], size=sch[0]["size"],
               channels=sch[0]["channels"]):
         nxt = modulation(layers[0], ws[1])
-        x = (fourier_features(g.synthesis.input, ws[0])
-             * nxt.in_scale[:, :, None, None]).to(compute_dtype)
+        x = fourier_features(g.synthesis.input, ws[0])
+        x = _to_layer_input(x * nxt.in_scale[:, :x.shape[1], None, None], layers[0],
+                            compute_dtype)
     for idx, m in enumerate(layers):
         mod = nxt
         with span("sg3.layer", index=idx, rate=m.out_rate, size=m.out_size,

@@ -15,9 +15,9 @@ reference has none).
   on one device falls in exactly one of them. Inside ``reenact.synthesis``
   a StyleGAN3 generator opens one ``sg3.layer`` a layer
   (``models/stylegan3.py``: ``index``, ``rate``, ``size``, ``channels``);
-* :func:`counters`: the kernels' counters (launches, K3's argument builds
-  and launch-cache misses, K4's plans made and planes prefetched) by dotted
-  name;
+* :func:`counters`: the kernels' counters (launches, K3's argument builds,
+  the launch plans K3 and K4 made, K4's channels-last launches and planes
+  prefetched) by dotted name;
 * :class:`StepTimer`: wall-clock step timing with percentile summaries, for
   a training loop's observability without a profiler. On the card each
   step ends with ``torch.cuda.synchronize()``, so that a step's time is its
@@ -61,10 +61,11 @@ def counters() -> Dict[str, int]:
     rest), K3's argument builds (``fused_conv_block.args_built``: a
     ConvBlock's folds and packed weights made anew), the launch plans K3 and
     K4 made anew (``fused_conv_block_cuda.plan_misses``,
-    ``filtered_lrelu_cuda.plan_misses``) and K4's
-    ``filtered_lrelu_cuda.prefetched_planes`` (planes whose input a block
-    had in flight before it needed them). They count from the process's
-    start."""
+    ``filtered_lrelu_cuda.plan_misses``), K4's launches on a channels-last
+    batch (``filtered_lrelu_cuda.nhwc_launches``, beside ``launches``) and
+    its ``filtered_lrelu_cuda.prefetched_planes`` (planes whose input a
+    block had in flight before it needed them). They count from the
+    process's start."""
     from ..ops import filtered_lrelu, fused_act, fused_conv_block, upfirdn2d_kernel
     fns = (upfirdn2d_kernel.upfirdn2d_cuda, upfirdn2d_kernel.upfirdn2d_bwd_cuda,
            fused_act.fused_bias_act_cuda, fused_act.fused_bias_act_bwd_cuda,

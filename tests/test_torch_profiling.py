@@ -174,6 +174,7 @@ def test_counters_and_k3_argument_builds(monkeypatch, inference_weights):
     assert set(LAUNCH_COUNTERS) | {"fused_conv_block.args_built",
                                    "fused_conv_block_cuda.plan_misses",
                                    "filtered_lrelu_cuda.plan_misses",
+                                   "filtered_lrelu_cuda.nhwc_launches",
                                    "filtered_lrelu_cuda.prefetched_planes"} == set(keys)
     monkeypatch.setattr(fan_mod, "fused_convblock_enabled", lambda p, x: k3.k3_takes(p))
     with torch.inference_mode(inference_weights):

@@ -15,7 +15,10 @@ plain reference, written from NVlabs' ``networks_stylegan3.py`` and
   two convolutions;
 * the replay of the kernel's tiles against the plain version, 1e-5·max:
   float32 sums of at most 24 taps in another order;
-* the filters against scipy, 1e-7: float32 rounding of the same formula.
+* the filters against scipy, 1e-7: float32 rounding of the same formula;
+* the synthesis channels-last against the same synthesis NCHW, 2e-6·max:
+  the CPU's convolutions sum in another order in either layout (K4's plain
+  version gives the same bits in both).
 """
 
 import os
@@ -34,6 +37,8 @@ from stylegan_directions_face_reenactment_tpu_torch.pipeline.synthesis import (
     generator_functions)
 from stylegan_directions_face_reenactment_tpu_torch.geometry import initialize_directions
 from stylegan_directions_face_reenactment_tpu_torch.weights.stylegan3 import init_stylegan3
+
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from torch_threads import _threads  # noqa: F401
 
@@ -127,6 +132,43 @@ def test_generator_matches_reference(small):
     assert err <= 2e-5 * want.abs().max().item(), err
 
 
+ODD = dict(resolution=64, channel_base=1000, channel_max=61, num_layers=6)
+
+
+def test_padded_channels_match_reference():
+    """Channel counts that are no multiple of 8 (61, 31): the port pads its
+    activations with zero channels, the reference does not."""
+    g = init_stylegan3(5, device="cpu", **ODD)
+    assert [(m.in_channels, m.in_padded, m.out_channels, m.out_padded) for m in g.layers()][2:5] \
+        == [(61, 64, 61, 64), (61, 64, 31, 32), (31, 32, 16, 16)]
+    r = ref_sg3.Generator(ODD["resolution"], 512, 2, **{k: v for k, v in ODD.items()
+                                                         if k != "resolution"})
+    r.load_state_dict(g.state_dict())
+    gen = torch.Generator().manual_seed(6)
+    with torch.no_grad():
+        lat = sg3.style_to_wplus(g, [sg3.mapping(g, torch.randn(2, 512, generator=gen))])
+        got = sg3.synthesis(g, lat)
+        want = ref_sg3.synthesis(r, lat)
+    err = (got - want).abs().max().item()
+    assert err <= 2e-5 * want.abs().max().item(), err
+
+
+@pytest.mark.parametrize("kw", [SMALL, ODD], ids=["small", "padded"])
+def test_synthesis_gives_the_same_image_in_either_layout(kw, monkeypatch):
+    """The synthesis channels-last (its layout) and NCHW: the same image, and
+    the channels-last one a contiguous NHWC tensor."""
+    g = init_stylegan3(3, device="cpu", **kw)
+    gen = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        lat = sg3.style_to_wplus(g, [sg3.mapping(g, torch.randn(2, 512, generator=gen))])
+        nhwc = sg3.synthesis(g, lat)
+        monkeypatch.setattr(sg3, "MEMORY_FORMAT", torch.contiguous_format)
+        nchw = sg3.synthesis(g, lat)
+    assert nhwc.is_contiguous() and not nchw.is_contiguous()
+    err = (nhwc - nchw).abs().max().item()
+    assert err <= 2e-6 * nchw.abs().max().item(), err
+
+
 def test_bf16_synthesis_stays_near_float32(small):
     """The control's precision runs: bf16 convolutions and K4 planes."""
     g, _, lat = small
@@ -159,6 +201,33 @@ def test_k4_plain_matches_nvlabs_reference(up, down, clamp):
         assert want.abs().max().item() <= clamp * 1.0001 or down > 1
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_k4_takes_channels_last(dtype):
+    """The plain version and ``sdfr::filtered_lrelu`` on an NHWC batch: the
+    same bits as on the NCHW batch, in the NHWC layout; the fake operator
+    gives the same strides; ``opcheck`` holds both layouts."""
+    gen = torch.Generator().manual_seed(13)
+    m = sg3.Generator(**SMALL).layers()[2]
+    x = torch.randn(2, 5, 21, 17, generator=gen).to(dtype)
+    xc = x.contiguous(memory_format=torch.channels_last)
+    assert k4.is_nhwc(xc) and not k4.is_nhwc(x)
+    b, s_in, s_out = (torch.randn(5, generator=gen), torch.rand(2, 5, generator=gen) + 0.5,
+                      torch.rand(2, 5, generator=gen) + 0.5)
+    args = (m.up_taps, m.down_taps, b, m.up, m.down, m.padding, 2 ** 0.5, 0.2, 1.0)
+    for fn in (k4.filtered_lrelu_plain, k4.filtered_lrelu):
+        want = fn(x, *args, in_scale=s_in, out_scale=s_out)
+        got = fn(xc, *args, in_scale=s_in, out_scale=s_out)
+        assert want.is_contiguous() and k4.is_nhwc(got) and got.dtype == dtype
+        assert torch.equal(got, want)
+    op_args = (xc, b, list(k4._taps(m.up_taps)), list(k4._taps(m.down_taps)), m.up, m.down,
+               list(m.padding), 2 ** 0.5, 0.2, 1.0, s_in, s_out)
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        fake = k4.filtered_lrelu_op(*op_args)
+    assert fake.shape == got.shape and fake.stride() == got.stride()
+    torch.library.opcheck(k4.filtered_lrelu_op, op_args)
+    torch.library.opcheck(k4.filtered_lrelu_op, (x.contiguous(),) + op_args[1:])
+
+
 def test_k4_plain_scales_each_plane_on_the_way_in_and_out():
     gen = torch.Generator().manual_seed(12)
     m = sg3.Generator(**SMALL).layers()[1]
@@ -172,33 +241,72 @@ def test_k4_plain_scales_each_plane_on_the_way_in_and_out():
 
 
 def _replay(x, b, fu, fd, up, down, pad, gain, slope, clamp, in_scale=None, out_scale=None,
-            itemsize=4, e0=0, pz=None):
+            itemsize=4, e0=0, pz=None, group=0):
     """K4's schedule (``csrc/filtered_lrelu.cu``) replayed in numpy, as the
     launch plan lays it out: a block a tile walks ``pz`` planes (the plan's
-    walk unless given), the next plane's input landing in the other slot
-    before the current one is filtered; every region in one shared memory
-    of the plan's size, a word a row of ``mem`` holding ``4 / itemsize``
-    elements (a float of regions B and C in its first column), so that a
-    region that overlapped a live one would spoil the answer. The input
-    starts ``e0`` elements past a 4-byte boundary; what a fetched word holds
-    outside the plane is NaN. Returns the output and how often each (tile,
-    plane) was made."""
+    walk unless given); every region in one shared memory of the plan's
+    size, a word a row of ``mem`` holding ``4 / itemsize`` elements (a float
+    of regions B and C and of the staging tiles in its first column), so
+    that a region that overlapped a live one would spoil the answer. The
+    input starts ``e0`` elements past a 4-byte boundary; what a fetched word
+    holds outside the plane is NaN.
+
+    ``group`` 0, an NCHW batch: the next plane's input lands in the other
+    slot before the current one is filtered. ``group`` g ≥ 1, ``x`` held
+    NHWC (channels-last): a block walks one sample's channels, ``pz`` of
+    them (the plan's :func:`channel_walk` unless given), in groups of g
+    whose tiles are copied together, a word an element into its plane's
+    slot; each plane's output goes to its staging tile (in its own slot once
+    the plane is upsampled along x, where it fits, else after region C), and
+    the group's tiles are stored a pixel at a time, their channels side by
+    side; the next group's inputs go in flight once the group's last plane
+    has been upsampled along x (staging of its own) or once the group is
+    stored (staging in the slots).
+    Returns the output (N, C, H, W) and how often each (tile, plane) was
+    made."""
     n, c, h, w = x.shape
     planes = n * c
     fu, fd = k4._taps(fu), k4._taps(fd)
     nq, kd = k4.instantiated_taps(up, down, len(fu), len(fd))
     px0, _, py0, _ = pad
     oh, ow = k4.output_shape(h, w, len(fu), len(fd), up, down, pad)
-    lay = k4.choose_tile(oh, ow, up, down, nq, kd, pad, itemsize)
+    lay = k4.choose_tile(oh, ow, up, down, nq, kd, pad, itemsize, group)
+    group = lay["group"]      # a group of which no tile fits is halved
     th, tw, run, drun, per = lay["th"], lay["tw"], k4.RUN, k4.DOWN_RUN, 4 // itemsize
     ih, iw, mh, mw, mh_used = lay["ih"], lay["iw"], lay["mh"], lay["mw"], lay["mh_used"]
     p_in, p_hu, p_mid, p_hd = lay["p_in"], lay["p_hu"], lay["p_mid"], lay["p_hd"]
     gx, gy = -(-ow // tw), -(-oh // th)
-    if pz is None:
-        pz, gz = k4.plane_walk(planes, gx * gy, lay["smem_bytes"])
+    words = lay["smem_bytes"] // 4
+    if group:
+        if pz is None:
+            pz, runs, gz = k4.channel_walk(n, c, gx * gy, lay["smem_bytes"], group)
+        else:
+            runs = -(-c // pz)
+            gz = n * runs
+        assert pz * (runs - 1) < c <= pz * runs
+        # NHWC in device memory: a pixel's channels side by side
+        data = x.permute(0, 2, 3, 1).numpy().ravel()
+        s_out, off_out = lay["s_out"], lay["off_out"]
+        assert lay["slot"] >= ih * p_in and p_in >= iw and lay["slot"] % 32 == 32 // group % 32
+        assert s_out >= th * tw and s_out % 32 == 32 // group % 32
+        assert lay["off_hu"] == group * lay["slot"]
+        if off_out:
+            assert off_out == lay["off_mid"] + mh * p_mid and th * tw > ih * p_in
+            assert words == off_out + (group - 1) * s_out + th * tw
+        else:
+            assert s_out == lay["slot"] and th * tw <= ih * p_in
+            assert words == lay["off_mid"] + mh * p_mid
+        out = np.full((n, oh, ow, c), np.nan, np.float32)
     else:
-        gz = -(-planes // pz)
-    assert pz * (gz - 1) < planes <= pz * gz
+        if pz is None:
+            pz, gz = k4.plane_walk(planes, gx * gy, lay["smem_bytes"])
+        else:
+            gz = -(-planes // pz)
+        assert pz * (gz - 1) < planes <= pz * gz
+        data = x.numpy().ravel()
+        assert words == lay["off_mid"] + mh * p_mid and lay["off_hu"] == 2 * lay["slot"]
+        assert lay["slot"] == ih * p_in and p_in >= k4.slot_words(iw, itemsize)
+        out = np.full((planes, oh, ow), np.nan, np.float32)
     stride = k4.MAX_TAPS // up
     fph = k4.phase_taps(fu, up).ravel()
     fdf = np.zeros(k4.MAX_TAPS, np.float32)
@@ -206,15 +314,11 @@ def _replay(x, b, fu, fd, up, down, pad, gain, slope, clamp, in_scale=None, out_
     wu, wd = (run - 1 + up - 1) // up + nq, (drun - 1) * down + kd
     phases = [((up - u % up) % up, (u + up - 1) // up) for u in range(run)]
     # the input as the card holds it, behind e0 elements and before a spare
-    flat = np.concatenate([np.full(e0, np.nan, np.float32), x.numpy().ravel(),
+    flat = np.concatenate([np.full(e0, np.nan, np.float32), data,
                            np.full(per, np.nan, np.float32)])
     a_in = np.ones(planes, np.float32) if in_scale is None else in_scale.numpy().ravel()
     a_out = np.ones(planes, np.float32) if out_scale is None else out_scale.numpy().ravel()
-    out = np.full((planes, oh, ow), np.nan, np.float32)
     made = np.zeros((gy, gx, planes), np.int64)
-    words = lay["smem_bytes"] // 4
-    assert words == lay["off_mid"] + mh * p_mid and lay["off_hu"] == 2 * lay["slot"]
-    assert lay["slot"] == ih * p_in and p_in >= k4.slot_words(iw, itemsize)
 
     def region(off, rows, pitch, cols):
         """Word indices of a region's rows × cols, inside the shared memory."""
@@ -238,8 +342,93 @@ def _replay(x, b, fu, fd, up, down, pad, gain, slope, clamp, in_scale=None, out_
             ix0 = (ox0 * down - lay["dx"] - px0) // up
             lo, hi = max(0, -ix0), min(iw, w - ix0)
             edge = iy0 < 0 or iy0 + ih > h or ix0 < 0 or ix0 + iw > w
+            rows_in = (np.arange(ih) + iy0 >= 0) & (np.arange(ih) + iy0 < h)
+            cols_in = (np.arange(iw) >= lo) & (np.arange(iw) < hi)
+            vh, vw = min(th, oh - oy0), min(tw, ow - ox0)    # the tile's outputs inside
             for z in range(gz):
                 mem = np.full((words, per), np.nan, np.float64)
+
+                def x_up(raw, plane):
+                    """2. x-up from a landed raw tile: scale, bias, zeros outside."""
+                    v = raw * a_in[plane] + np.float32(b[plane % c].item())
+                    if edge:
+                        v = np.where(rows_in[:, None] & cols_in[None], v, np.float32(0))
+                    assert not np.isnan(v).any()
+                    hu = region(lay["off_hu"], ih, p_hu, mw)
+                    for c0 in range(0, mw, run):
+                        win = v[:, c0 // up: c0 // up + wu].T
+                        assert win.shape[0] == wu
+                        mem[hu[:, c0:c0 + run], 0] = up_run(win).T
+                    return hu
+
+                def rest(hu, plane):
+                    """3.-5.: y-up and the activation, x-down into region B, y-down
+                    and the output scale; the tile's outputs inside the plane."""
+                    mid = region(lay["off_mid"], mh, p_mid, mw)
+                    s_hu = mem[hu, 0].astype(np.float32)
+                    for r0 in range(0, mh, run):
+                        win = s_hu[r0 // up: r0 // up + wu]
+                        assert win.shape[0] == wu
+                        u = up_run(win)
+                        u = np.where(u < 0, u * slope, u) * gain
+                        mem[mid[r0:r0 + run], 0] = u if clamp is None else np.clip(u, -clamp,
+                                                                                    clamp)
+                    s_mid = mem[mid, 0].astype(np.float32)
+                    hd = region(lay["off_hu"], mh_used, p_hd, tw)
+                    for t0 in range(0, tw, drun):
+                        s0 = lay["dx"] + t0 * down
+                        win = s_mid[:mh_used, s0:s0 + wd].T
+                        assert win.shape[0] == wd
+                        mem[hd[:, t0:t0 + drun], 0] = down_run(win).T
+                    s_hd = mem[hd, 0].astype(np.float32)
+                    o = np.concatenate([down_run(s_hd[lay["dy"] + t0 * down:][:wd])
+                                        for t0 in range(0, th, drun)])
+                    return (o * a_out[plane])[:vh, :vw]
+
+                if group:
+                    ns, c0 = divmod(z, runs)
+                    c0 *= pz
+                    walked = min(pz, c - c0)
+                    # element index of the walk's first channel at (input row 0,
+                    # tile column 0) of its sample
+                    e_in = e0 + ns * h * w * c + c0 + ix0 * c
+                    pix = ((iy0 + np.arange(ih))[:, None] * w + np.arange(iw)[None]) * c
+
+                    def issue(k0, gr):
+                        """A group's tiles, an element a word, into slots 0 .. g - 1
+                        (zero-filled past the group's gr channels and outside)."""
+                        for g in range(group):
+                            e = e_in + k0 + g + pix
+                            fetch = (g < gr) & rows_in[:, None] & cols_in[None]
+                            first = np.where(fetch, e - e % per, 0)
+                            got = flat[first[..., None] + np.arange(per)]
+                            idx = region(g * lay["slot"], ih, p_in, iw)
+                            mem[idx] = np.where(fetch[..., None], got, 0.0)
+
+                    gr = min(group, walked)
+                    issue(0, gr)
+                    for k in range(walked):
+                        plane, gi = ns * c + c0 + k, k % group
+                        e = e_in + k + pix
+                        raw = mem[region(gi * lay["slot"], ih, p_in, iw), e % per]
+                        hu = x_up(raw.astype(np.float32), plane)
+                        gr_next = min(group, walked - k - 1)
+                        if gi == gr - 1 and gr_next and off_out:
+                            issue(k + 1, gr_next)
+                        mem[region(off_out + gi * s_out, vh, tw, vw), 0] = rest(hu, plane)
+                        made[ty, tx, plane] += 1
+                        if gi == gr - 1:
+                            base = c0 + k - gi
+                            for g in range(gr):
+                                tile = mem[region(off_out + g * s_out, vh, tw, vw), 0]
+                                dst = out[ns, oy0:oy0 + vh, ox0:ox0 + vw, base + g]
+                                assert np.isnan(dst).all()
+                                dst[...] = tile
+                            if gr_next and not off_out:
+                                issue(k + 1, gr_next)
+                            gr = gr_next
+                    continue
+
                 plane0 = z * pz
                 walked = min(pz, planes - plane0)
 
@@ -262,52 +451,14 @@ def _replay(x, b, fu, fd, up, down, pad, gain, slope, clamp, in_scale=None, out_
                     plane = plane0 + k
                     if k + 1 < walked:
                         issue(plane + 1, (k + 1) % 2)
-                    # 2. x-up from the landed raw tile: scale, bias, zeros outside
                     slot = mem[k % 2 * lay["slot"]:(k % 2 + 1) * lay["slot"]].ravel()
                     e_row = e0 + plane * h * w + iy0 * w + ix0 + np.arange(ih) * w
                     halves = (np.arange(ih) * p_in * per + e_row % per)[:, None] + np.arange(iw)
-                    raw = slot[halves].astype(np.float32)
-                    v = raw * a_in[plane] + np.float32(b[plane % c].item())
-                    if edge:
-                        ys, xs = np.arange(ih) + iy0, np.arange(iw) + ix0
-                        inside = ((ys >= 0) & (ys < h))[:, None] & ((xs >= 0) & (xs < w))[None]
-                        v = np.where(inside, v, np.float32(0))
-                    assert not np.isnan(v).any()
-                    hu = region(lay["off_hu"], ih, p_hu, mw)
-                    for c0 in range(0, mw, run):
-                        win = v[:, c0 // up: c0 // up + wu].T
-                        assert win.shape[0] == wu
-                        mem[hu[:, c0:c0 + run], 0] = up_run(win).T
-                    # 3. y-up and the activation
-                    mid = region(lay["off_mid"], mh, p_mid, mw)
-                    s_hu = mem[hu, 0].astype(np.float32)
-                    for r0 in range(0, mh, run):
-                        win = s_hu[r0 // up: r0 // up + wu]
-                        assert win.shape[0] == wu
-                        u = up_run(win)
-                        u = np.where(u < 0, u * slope, u) * gain
-                        mem[mid[r0:r0 + run], 0] = u if clamp is None else np.clip(u, -clamp,
-                                                                                    clamp)
-                    # 4. x-down into region B
-                    s_mid = mem[mid, 0].astype(np.float32)
-                    hd = region(lay["off_hu"], mh_used, p_hd, tw)
-                    for t0 in range(0, tw, drun):
-                        s0 = lay["dx"] + t0 * down
-                        win = s_mid[:mh_used, s0:s0 + wd].T
-                        assert win.shape[0] == wd
-                        mem[hd[:, t0:t0 + drun], 0] = down_run(win).T
-                    # 5. y-down, the output scale, the store
-                    s_hd = mem[hd, 0].astype(np.float32)
-                    for t0 in range(0, th, drun):
-                        s0 = lay["dy"] + t0 * down
-                        win = s_hd[s0:s0 + wd]
-                        assert win.shape[0] == wd
-                        o = down_run(win) * a_out[plane]
-                        rows, cols = min(drun, oh - oy0 - t0), min(tw, ow - ox0)
-                        if rows > 0 and cols > 0:
-                            out[plane, oy0 + t0:oy0 + t0 + rows, ox0:ox0 + cols] = \
-                                o[:rows, :cols]
+                    hu = x_up(slot[halves].astype(np.float32), plane)
+                    out[plane, oy0:oy0 + vh, ox0:ox0 + vw] = rest(hu, plane)
                     made[ty, tx, plane] += 1
+    if group:
+        return torch.from_numpy(out).permute(0, 3, 1, 2), made
     return torch.from_numpy(out.reshape(n, c, oh, ow)), made
 
 
@@ -356,6 +507,49 @@ def test_kernel_tiles_replay_the_plain_version(up, down, ku, kd, pad, size):
 
 
 @pytest.mark.parametrize("up,down,ku,kd,pad,size", REPLAYED, ids=REPLAYED_IDS)
+def test_kernel_nhwc_tiles_replay_the_plain_version(up, down, ku, kd, pad, size):
+    """An NHWC batch of 2 samples of 11 channels, each sample's channels
+    walked 10 at a time in groups of k4.GROUP (a group of 8 and a ragged one
+    of 2, then a ragged walk of 1): the group copy into the planes' slots,
+    the staging tiles and the store a pixel at a time."""
+    x, (fu, fd, b, *rest), s, want = _replay_case(up, down, ku, kd, pad, size, (2, 11))
+    xc = x.contiguous(memory_format=torch.channels_last)
+    got, made = _replay(xc, b, fu, fd, *rest, **s, pz=10, group=k4.GROUP)
+    assert (made == 1).all()
+    assert got.shape == want.shape
+    assert (got - want).abs().max().item() <= 1e-5 * max(1.0, want.abs().max().item())
+
+
+@pytest.mark.parametrize("up,down,ku,kd,pad,size", REPLAYED, ids=REPLAYED_IDS)
+def test_kernel_nhwc_filters_the_zero_planes_to_zeros(up, down, ku, kd, pad, size):
+    """16 channels of which the last 5 are zero planes with a zero bias (as
+    the synthesis pads its channel counts), walked 8 at a time: every plane
+    is filtered like any other, and the zero planes come out exactly zero."""
+    x, (fu, fd, b, *rest), s, _ = _replay_case(up, down, ku, kd, pad, size, (2, 16))
+    x[:, 11:], b[11:] = 0, 0
+    want = k4.filtered_lrelu_plain(x, fu, fd, b, *rest, **s)
+    assert not want[:, 11:].any()
+    got, made = _replay(x.contiguous(memory_format=torch.channels_last), b, fu, fd, *rest, **s,
+                        pz=8, group=k4.GROUP)
+    assert (made == 1).all()
+    assert (got - want).abs().max().item() <= 1e-5 * max(1.0, want.abs().max().item())
+    assert not got[:, 11:].any()
+
+
+@pytest.mark.parametrize("up,down,ku,kd,pad,size", REPLAYED, ids=REPLAYED_IDS)
+def test_kernel_nhwc_bf16_replay_the_plain_version(up, down, ku, kd, pad, size):
+    """bf16 NHWC: an odd channel count (a pixel's channels start on either
+    half of a word), the tensor itself on a word's second half, each
+    sample's channels walked at once in groups of 4 (two groups of 4, a
+    ragged one of 3)."""
+    x, (fu, fd, b, *rest), s, want = _replay_case(up, down, ku, kd, pad, size, (2, 11),
+                                                  dtype=torch.bfloat16)
+    got, made = _replay(x, b, fu, fd, *rest, **s, itemsize=2, e0=1, pz=11, group=4)
+    assert (made == 1).all()
+    assert (got - want).abs().max().item() <= 1e-5 * max(1.0, want.abs().max().item())
+
+
+@pytest.mark.parametrize("up,down,ku,kd,pad,size", REPLAYED, ids=REPLAYED_IDS)
 def test_kernel_bf16_slots_replay_the_plain_version(up, down, ku, kd, pad, size):
     """bf16 input: two elements a word, rows of odd width starting on either
     half, the tensor itself on a word's second half; 5 planes walked 2 at a
@@ -400,6 +594,39 @@ def test_launch_plans_fit_the_card():
     with pytest.raises(ValueError, match="CUDA"):
         k4.make_plan((1, 1, 8, 8), torch.float32, torch.device("cpu"), None, None, 1, 1,
                      (0, 0, 0, 0), 1.0, 1.0, None)
+
+
+def test_nhwc_launch_plans_fit_the_card():
+    """Every published layer's NHWC plan at a chunk of 16 frames and the
+    padded channel counts the synthesis runs, f32 and bf16: groups of
+    k4.GROUP channels, slots and staging tiles within the shared memory and
+    apart by a word count that spreads a warp's channels over the banks,
+    each sample's channels in runs of whole groups, a grid the
+    card takes. Plans are made for a CUDA device without a card."""
+    g = sg3.Generator()
+    dev = torch.device("cuda", 0)
+    for m in g.layers():
+        conv_hw = m.in_size + m.conv_kernel - 1
+        for dtype in (torch.float32, torch.bfloat16):
+            plan = k4.make_plan((16, m.out_padded, conv_hw, conv_hw), dtype, dev, m.up_taps,
+                                m.down_taps, m.up, m.down, m.padding, 2 ** 0.5, 0.2, 256.0,
+                                nhwc=True)
+            p = plan.params
+            assert p.nhwc == 1 and p.cg == k4.GROUP == 1 << p.lg
+            assert k4.resident_blocks(p.smem_bytes) >= 2 and p.smem_bytes <= k4.MAX_SMEM_NHWC
+            assert p.slot % 32 == p.s_out % 32 == 32 // p.cg and p.slot >= p.ih * p.p_in
+            assert p.off_hu == p.cg * p.slot
+            # the output staged in the input slots where a tile fits (up 1 and 2)
+            assert (p.off_out == 0) == (m.up < 4)
+            assert p.smem_bytes == 4 * max(p.off_mid + p.mh * p.p_mid,
+                                           p.off_out + (p.cg - 1) * p.s_out + p.th * p.tw)
+            # the walks cover every channel, the zero ones too, in whole groups
+            assert p.channels == m.out_padded
+            assert p.pz % p.cg == 0 or p.runs == 1
+            assert p.pz * (p.runs - 1) < p.channels <= p.pz * p.runs
+            assert p.gz == 16 * p.runs <= k4.MAX_GRID_Z
+            assert plan.out_shape == (16, m.out_padded, m.out_size, m.out_size)
+            assert plan.prefetched == p.gx * p.gy * (16 * m.out_padded - p.gz)
 
 
 def test_generate_image_shifts_8_of_16_rows():
